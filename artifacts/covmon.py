@@ -7,7 +7,7 @@ location — so the suite runs at essentially full speed.
 
 Usage (from the repo root):
 
-    python artifacts/covmon.py -m "not slow and not tpu" -q    # collect
+    python artifacts/covmon.py -m "not slow and not gpu" -q    # collect
     python artifacts/covmon.py --report                        # report
 
 Collection writes ``artifacts/covmon_hits.json`` (merging into an

@@ -39,7 +39,7 @@ REF = "/root/reference"
 sys.path.insert(0, REPO)
 
 # parity regime: the reference side is float64 numpy; our side must run
-# its metric pipeline on CPU x64, not the f32 TPU backend
+# its metric pipeline on CPU x64, not the f32 device backend
 import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)

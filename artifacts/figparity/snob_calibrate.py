@@ -40,15 +40,14 @@ def collect_snob(n, out, sigma, c=1000, budget=int(1e6), exp_dir=None):
 
 
 def rims_of(controllers, n, out, sigma, key, bootreps=100):
-    import jax
     import jax.numpy as jnp
     from code_robchar_tpu.mc.engine import mc_metric_sweep
     from code_robchar_tpu.ops import chain
     h0 = chain.xx_hamiltonian_real(n, dtype=jnp.float32)
+    # use_pallas=None: ops/select.py picks the kernel for the platform
     md = mc_metric_sweep(h0, jnp.asarray(controllers, jnp.float32),
                          jnp.asarray([sigma], jnp.float32), key,
-                         bootreps, 0, out,
-                         use_pallas=jax.default_backend() != "cpu")
+                         bootreps, 0, out)
     return np.asarray(md[r"$W(.,\delta(x-1))$"][0])
 
 

@@ -10,7 +10,7 @@ see ARCHITECTURE.md "Compilation economics"):
 - within a process the first cell of a family pays the XLA compile,
   every later sigma cell of that family reuses the compiled program;
 - across processes the persistent cache turns the first-cell compile
-  into a ~0.1 s deserialize (run this script twice to see it).
+  into a deserialize (run this script twice to see it).
 
 Run from the repo root on the target device:
     python artifacts/perf/e2e_pipeline_timing.py [--fresh-compile-cache]
@@ -27,8 +27,8 @@ import time
 
 if "--fresh-compile-cache" in sys.argv:
     # measure the true cold-compile column: point the persistent cache at
-    # an empty dir (config.py reads this before first device use)
-    os.environ["ROBCHAR_COMPILATION_CACHE"] = tempfile.mkdtemp(
+    # an empty dir (JAX reads this before first device use)
+    os.environ["JAX_COMPILATION_CACHE_DIR"] = tempfile.mkdtemp(
         prefix="robchar_cc_")
 
 sys.path.insert(0, os.getcwd())

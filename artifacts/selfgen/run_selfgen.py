@@ -5,7 +5,7 @@ controller data: all four optimizer families search 1000 controllers each
 at sigma_train in {0.0, 0.05, 0.1} with the reference's 1e6-fcall budget
 (get_paper_data.sh:4-30 semantics), then the MC engine characterises the
 resulting store and the figure stack renders fig3e/fig5-style outputs —
-everything TPU-native, end-to-end.
+everything on the device, end-to-end.
 
 Run from the repo root:  python artifacts/selfgen/run_selfgen.py
 """

@@ -1,4 +1,4 @@
-"""code_robchar_tpu — a TPU-native framework for statistically characterising
+"""code_robchar_tpu — a JAX framework for statistically characterising
 robustness and fidelity of quantum controls on Heisenberg XX/XXZ spin chains.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of

@@ -37,6 +37,9 @@ def get_noise_analysis_args(argv=None):
     p.add_argument("--algo_name", type=str, default=None,
                    choices=("ppo", "lbfgs", "snob", "nmplus"),
                    help="Algo whose statistics will be recorded.")
+    p.add_argument("--algos", type=str, default=None,
+                   help="comma-separated families for `collect` (default: "
+                        "the reference's ppo,lbfgs,nmplus,snob)")
     p.add_argument("--topo", type=str, default="chain",
                    choices=("chain", "ring"))
     p.add_argument("--num_controllers", type=int, default=1000)

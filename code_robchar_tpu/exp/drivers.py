@@ -34,7 +34,10 @@ def run_experiments_single_controller_set_with_le(argv=None):
                      verbose=args.verbose, run_until_told_to_stop=True,
                      run_until_completion_its=args.run_until_completion_its,
                      runs=args.num_controllers)
-    exp.singlerun_ccollector()
+    if args.algos:
+        exp.singlerun_ccollector(args.algos.split(","))
+    else:
+        exp.singlerun_ccollector()
     return exp
 
 
@@ -123,13 +126,14 @@ _COMMANDS = {
 }
 
 
-def main():
-    if len(sys.argv) < 2 or sys.argv[1] not in _COMMANDS:
+def main(argv=None):
+    """``argv`` defaults to the command line (after the program name)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] not in _COMMANDS:
         print(f"usage: python -m code_robchar_tpu.exp.drivers "
               f"{{{'|'.join(_COMMANDS)}}} [flags]")
         raise SystemExit(2)
-    cmd, argv = sys.argv[1], sys.argv[2:]
-    _COMMANDS[cmd](argv)
+    return _COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

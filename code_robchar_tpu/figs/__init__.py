@@ -1,7 +1,7 @@
 """Paper figure generators (host-side matplotlib over cached device data).
 
 Each module rebuilds one of the reference's figure scripts on top of the
-TPU MC engine and the shared cache schemas:
+device MC engine and the shared cache schemas:
 
 - fig1:  CDF-area example figures        (generate_example_fig1.py)
 - fig3:  per-controller RIM heatmaps and best/median curves

@@ -5,7 +5,7 @@ ECDFs of two algorithms' controllers (lbfgs vs ppo) at a given noise level
 against the ideal delta(x-1), shading DKW bands and annotating RIM values —
 the "RIM = area above the CDF" visual.
 
-TPU-native difference: the reference bootstraps with a per-sample Python
+Difference from the reference: the reference bootstraps with a per-sample Python
 expm loop; here the whole (noise x controller x rep) lattice for BOTH algo
 sets is two calls into the jitted MC sweep.
 """

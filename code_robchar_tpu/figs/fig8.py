@@ -7,7 +7,7 @@ grid and average into a per-checkpoint ARIM curve; cache per
 (algo, sigma_train, marker) as .pickle; plot stoch-vs-nonstoch scaling for
 the four algorithms plus the lbfgs no-noise bench line.
 
-TPU-native difference: the reference evaluates ~4.4e6 sequential expms per
+Difference from the reference: the reference evaluates ~4.4e6 sequential expms per
 (algo, sigma) if uncached (SURVEY.md §3.4); here each checkpoint's
 (noise x controller x bootrep) lattice is one jitted MC sweep, and the
 "RIM" here is mean infidelity 1 - mean(F) per the reference's get_rims

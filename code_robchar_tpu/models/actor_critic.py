@@ -1,74 +1,74 @@
-"""Flax actor-critic for PPO controller synthesis.
+"""Actor-critic for PPO controller synthesis, in plain JAX.
 
 Reference: ppo_core.py:18-118 (torch MLPs).  Same architecture contract:
 tanh MLP with (100, 100) hidden units for both heads, Gaussian policy with
 a state-independent learned log-std initialised at -0.5, log-prob summed
 over action dims, value head squeezed to a scalar.
+
+Parameters are a dict pytree::
+
+    {"pi": {"layers": [{"w": (in, out), "b": (out,)}, ...],
+            "log_std": (act_dim,)},
+     "v":  {"layers": [...]}}
+
+with LeCun-normal weights (truncated normal, variance 1/fan_in) and zero
+biases, in float32.  Every dense layer multiplies at ``PRECISION``: a
+float32 dot on the GPU otherwise runs in TF32, which keeps about three
+decimal digits.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+HIDDEN = (100, 100)
+LOG_STD_INIT = -0.5
+PRECISION = jax.lax.Precision.HIGHEST
 
 
-class MLP(nn.Module):
-    sizes: Sequence[int]
-    activation: str = "tanh"
-
-    @nn.compact
-    def __call__(self, x):
-        act = getattr(nn, self.activation)
-        for i, width in enumerate(self.sizes):
-            x = nn.Dense(width)(x)
-            if i < len(self.sizes) - 1:
-                x = act(x)
-        return x
+def _mlp_init(key, sizes: Sequence[int]):
+    init = jax.nn.initializers.lecun_normal()
+    keys = jax.random.split(key, len(sizes) - 1)
+    return [{"w": init(k, (m, n), jnp.float32),
+             "b": jnp.zeros((n,), jnp.float32)}
+            for k, m, n in zip(keys, sizes[:-1], sizes[1:])]
 
 
-class GaussianActor(nn.Module):
-    act_dim: int
-    hidden: Sequence[int] = (100, 100)
-
-    @nn.compact
-    def __call__(self, obs):
-        mu = MLP(sizes=(*self.hidden, self.act_dim))(obs)
-        log_std = self.param("log_std",
-                             lambda _key, shape: -0.5 * jnp.ones(shape),
-                             (self.act_dim,))
-        return mu, log_std
+def _mlp(layers, x):
+    for i, layer in enumerate(layers):
+        x = jnp.dot(x, layer["w"], precision=PRECISION) + layer["b"]
+        if i < len(layers) - 1:
+            x = jnp.tanh(x)
+    return x
 
 
-class Critic(nn.Module):
-    hidden: Sequence[int] = (100, 100)
+def init(key, obs_dim: int, act_dim: int,
+         hidden: Sequence[int] = HIDDEN) -> Dict:
+    """Fresh parameters for observations of ``obs_dim`` and actions of
+    ``act_dim`` (ppo_core.py:98-107)."""
+    kpi, kv = jax.random.split(key)
+    return {"pi": {"layers": _mlp_init(kpi, (obs_dim, *hidden, act_dim)),
+                   "log_std": jnp.full((act_dim,), LOG_STD_INIT,
+                                       jnp.float32)},
+            "v": {"layers": _mlp_init(kv, (obs_dim, *hidden, 1))}}
 
-    @nn.compact
-    def __call__(self, obs):
-        v = MLP(sizes=(*self.hidden, 1))(obs)
-        return jnp.squeeze(v, axis=-1)
+
+def actor(params, obs) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """(mu, log_std) of the Gaussian policy."""
+    return _mlp(params["pi"]["layers"], obs), params["pi"]["log_std"]
 
 
-class ActorCritic(nn.Module):
-    """pi + v bundle (ppo_core.py:98-107)."""
-    act_dim: int
-    hidden: Sequence[int] = (100, 100)
+def critic(params, obs) -> jnp.ndarray:
+    return jnp.squeeze(_mlp(params["v"]["layers"], obs), axis=-1)
 
-    def setup(self):
-        self.pi = GaussianActor(self.act_dim, self.hidden)
-        self.v = Critic(self.hidden)
 
-    def __call__(self, obs):
-        mu, log_std = self.pi(obs)
-        return mu, log_std, self.v(obs)
-
-    def actor(self, obs):
-        return self.pi(obs)
-
-    def critic(self, obs):
-        return self.v(obs)
+def apply(params, obs):
+    """(mu, log_std, v): both heads on ``obs``."""
+    mu, log_std = actor(params, obs)
+    return mu, log_std, critic(params, obs)
 
 
 def gaussian_logp(mu, log_std, act):
@@ -80,11 +80,11 @@ def gaussian_logp(mu, log_std, act):
                    axis=-1)
 
 
-def policy_step(params, apply_fn, obs, key) -> Tuple[jnp.ndarray, jnp.ndarray,
-                                                     jnp.ndarray]:
+def policy_step(params, obs, key) -> Tuple[jnp.ndarray, jnp.ndarray,
+                                           jnp.ndarray]:
     """Sample (action, value, logp) — the no-grad acting step
     (ppo_core.py:109-115)."""
-    mu, log_std, v = apply_fn(params, obs)
+    mu, log_std, v = apply(params, obs)
     a = mu + jnp.exp(log_std) * jax.random.normal(key, mu.shape, mu.dtype)
     logp = gaussian_logp(mu, log_std, a)
     return a, v, logp

@@ -12,7 +12,7 @@ v_hat = v/(1-beta2) normalisation.  Moments are NOT reset on restart
 supports run_until_told_to_stop + landscape exploration
 (qnewton.py:647-648).
 
-TPU-native shape: many independent Adam streams advance in lockstep
+Device shape: many independent Adam streams advance in lockstep
 (vmap over streams of a `lax.scan` segment); the host loop splices segment
 results into the record protocol.  Restart cadence is hoisted to the
 segment boundary (restarts are synchronous across streams because every
@@ -210,8 +210,8 @@ class Adam(ControlOptimizer):
         wrapped in shard_map over the stream axis (the Sobol table keeps
         its stream axis sharded too, so local `sids` index local table
         blocks and the global draw-disjointness contract holds).  Manual
-        axes because the gradient kernels are Pallas on TPU and Mosaic
-        custom calls cannot be GSPMD-auto-partitioned; the program is
+        axes because the gradient kernels are Pallas kernels, which GSPMD
+        cannot partition; the program is
         elementwise along streams, so there are no collectives.  Built
         fresh (not from the plain program cache — a manual-axes trace of
         the cached program would poison its plain entries) and cached by

@@ -87,7 +87,7 @@ def env_step(cfg: EnvConfig, h0: jnp.ndarray, state: EnvState,
 
     ``h0`` (and ``fixed_hams``) are REAL symmetric: the training-side
     physics never leaves the reals (SURVEY.md quirk 7), so the whole step
-    runs on the split-real kernels (ops/realform.py) — TPU-safe.
+    runs on the split-real kernels (ops/realform.py) — no complex dtype.
 
     ``with_true_fid=False`` skips the noiseless-fidelity eigendecomposition
     (returns 0.0 in that slot): inside a sequential rollout scan this

@@ -144,13 +144,9 @@ class _Carry(NamedTuple):
     out_nit: jnp.ndarray
 
 
-# hardware batch width for the recycled loop.  Measured on one v5e chip
-# (N=7 noiseless, 8192-restart pool) AFTER the pick_tile dispatch fix
-# (pallas_jacobi.pick_tile — the earlier sweep that chose 512 was
-# distorted by line-search batch widths silently falling off the Pallas
-# path): 256 lanes 54.0k restarts/s, 512 lanes 72.6k, 768 lanes 72.0k,
-# 1024 lanes 78.3k, 1536+ lanes 55.5k — 1024 balances kernel occupancy
-# against drain-tail waste (107.7k at a 16384 pool).
+# hardware batch width for the recycled loop: wide enough to fill the
+# kernel, narrow enough to bound the drain-tail waste.  Not yet measured
+# on the GPU (PERF.md, open questions).
 _DEFAULT_LANES = 1024
 
 

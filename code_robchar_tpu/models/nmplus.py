@@ -6,11 +6,11 @@ an in-house "accelerated" variant adds regular-simplex init and a planar
 (hyperplane) reflection mode (nmplus.py:20-149, flagged broken upstream at
 327-331).
 
-TPU-native shape: the *simplex update is the loop body* of a
+Device shape: the *simplex update is the loop body* of a
 `lax.while_loop`, and hundreds of restarts run the loop in lockstep under
 vmap.  The d+2 candidate objective evaluations of a simplex step (reflect /
 expand / two contractions happen on at most 2 of them per iteration, but
-all are computed branch-free and selected with `where` — cheaper on VPU
+all are computed branch-free and selected with `where` — cheaper
 than divergent control flow).  Standard NM coefficients alpha=1, gamma=2
 (expand), rho=0.5 (contract), sigma=0.5 (shrink); bounds enforced by
 clipping candidates into the box, matching scipy's bounded NM behavior.
@@ -218,9 +218,7 @@ def _nm_while_batched(simplex0_pool, key, infid_b, lower, upper, maxfev,
     evaluations at their pending round).  Per-restart trajectories,
     billing and convergence semantics are restart-for-restart identical
     to the two-chain layout this replaces; the single chain evaluates
-    max(4, d+1) points/lane/round instead of 4 + (d+1) (measured N=7
-    8192-pool, one v5e chip, with the pick_tile Pallas dispatch fix:
-    20.7k -> 23.0k restarts/s at 1024 lanes)."""
+    max(4, d+1) points/lane/round instead of 4 + (d+1)."""
     R, dp1, d = simplex0_pool.shape
     L = int(min(lanes or _DEFAULT_LANES, R))
     m = max(4, dp1)  # eval slots per lane (dp1 >= 6 for every real chain)
@@ -404,8 +402,8 @@ class NMPlus(ControlOptimizer):
     # fixed-width hardware batch (see _nm_while_batched / models/lbfgs.py)
     default_batch = 2048
 
-    # measured lane optimum at the 8192-pool N=7 dispatch: 1024 beats
-    # 512 by ~6% and 2048 by ~21% (see _nm_while_batched docstring)
+    # lanes of the recycled hardware batch (the L-BFGS width; not yet
+    # measured on the GPU)
     default_lane_width = 1024
 
     def __init__(self, *args, maxfev: int = 300,

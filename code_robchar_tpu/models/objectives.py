@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from code_robchar_tpu.metrics.rim import wd_from_ideal
-from code_robchar_tpu.ops import noise as noise_ops, realform
+from code_robchar_tpu.ops import noise as noise_ops, realform, select
 
 
 class ObjectiveSpec(NamedTuple):
@@ -49,7 +49,7 @@ def make_infidelity(spec: ObjectiveSpec
 
     The whole training path is REAL symmetric (XX drift + real training
     noise, SURVEY.md quirk 7), so everything runs on the split-real
-    kernels — no complex dtype, TPU-safe (ops/realform.py).
+    kernels (ops/realform.py) — no complex dtype.
     """
     n = spec.h0.shape[-1]
     h0r = jnp.real(spec.h0)
@@ -112,40 +112,36 @@ def make_exact_gradient(spec: ObjectiveSpec):
 def make_exact_gradient_batch(spec: ObjectiveSpec):
     """(xs (K, d)) -> (errs (K,), grads (K, d)): the exact analytic
     gradient with the restart batch riding the LANE dimension through one
-    Jacobi chain — the optimizer zoo's hot path.  On TPU backends the
-    whole evaluation (full-V eigh + Daleckii-Krein contraction) is ONE
-    fused Pallas launch (pallas_jacobi.make_sym_grad_kernel); elsewhere
-    the XLA lanes kernel (realform.infidelity_and_gradient_sym_lanes)."""
+    Jacobi chain — the optimizer zoo's hot path.  Where ops/select.py
+    picks the Pallas kernel the whole evaluation (full-V eigh +
+    Daleckii-Krein contraction) is one launch
+    (pallas_jacobi.infidelity_and_gradient_sym_pallas); elsewhere the XLA
+    lanes kernel (realform.infidelity_and_gradient_sym_lanes)."""
     h0r = jnp.real(spec.h0)
-    n = h0r.shape[-1]
-    use_pallas = jax.default_backend() == "tpu"  # Mosaic: TPU only, not GPU
+    use_pallas = select.use_pallas()
 
     def f(xs):
         if use_pallas:
             from code_robchar_tpu.ops.pallas_jacobi import \
                 infidelity_and_gradient_sym_pallas
-            sweeps = realform._sweeps_for(h0r.dtype, n)
             return infidelity_and_gradient_sym_pallas(
-                h0r, xs, spec.in_spin, spec.out_spin, sweeps)
+                h0r, xs, spec.in_spin, spec.out_spin)
         return realform.infidelity_and_gradient_sym_lanes(
             h0r, xs, spec.in_spin, spec.out_spin)
     return f
 
 
-def _make_fid_lanes(n: int, in_spin: int, out_spin: int):
+def _make_fid_lanes(in_spin: int, out_spin: int):
     """(a (n, n, B), t (B,)) -> fids (B,): the shared lanes fidelity
-    kernel — one fused Pallas launch on TPU backends (any width:
-    pick_tile pads to a Mosaic-legal tile), the XLA lanes kernel on
-    CPU."""
-    use_pallas = jax.default_backend() == "tpu"  # Mosaic: TPU only, not GPU
+    kernel — the Pallas kernel or the XLA lanes path, as ops/select.py
+    picks."""
+    use_pallas = select.use_pallas()
 
     def fid_lanes(a, t):
         if use_pallas:
             from code_robchar_tpu.ops.pallas_jacobi import \
                 fidelity_sym_pallas
-            return fidelity_sym_pallas(
-                a, t, in_spin, out_spin,
-                realform._sweeps_for(a.dtype, n))
+            return fidelity_sym_pallas(a, t, in_spin, out_spin)
         return realform.fidelity_sym_lanes(a, t, in_spin, out_spin)
     return fid_lanes
 
@@ -194,7 +190,7 @@ def make_infidelity_batch(spec: ObjectiveSpec):
     h0r = jnp.real(spec.h0)
     fixed_r = jnp.real(spec.fixed_hams) if spec.fixed_hams is not None \
         else None
-    fid_lanes = _make_fid_lanes(n, spec.in_spin, spec.out_spin)
+    fid_lanes = _make_fid_lanes(spec.in_spin, spec.out_spin)
 
     def infid(xs, key):
         k = xs.shape[0]
@@ -307,7 +303,7 @@ def make_wass_cost_batch(spec: ObjectiveSpec, bootstrap_reps: int = 5):
     a trailing-axis wd_from_ideal."""
     n = spec.h0.shape[-1]
     h0r = jnp.real(spec.h0)
-    fid_lanes = _make_fid_lanes(n, spec.in_spin, spec.out_spin)
+    fid_lanes = _make_fid_lanes(spec.in_spin, spec.out_spin)
 
     def cost(xs, key):
         k = xs.shape[0]

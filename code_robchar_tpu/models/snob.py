@@ -74,10 +74,13 @@ def _snob_restarts_batched(x0s, key, infid_b, lower, upper, budget):
         dx = mem_x - best_x[:, None, :]
         df = mem_f - best_f[:, None]
         # least squares via batched normal equations (a vmapped SVD lstsq
-        # dominates the round on TPU); tiny Tikhonov term for rank safety
-        ata = jnp.einsum("kqa,kqb->kab", dx, dx)
+        # dominates the round on the device); tiny Tikhonov term for rank
+        # safety.  HIGHEST: the normal equations square the design
+        # matrix's condition number, which a TF32 product would not survive.
+        hi = jax.lax.Precision.HIGHEST
+        ata = jnp.einsum("kqa,kqb->kab", dx, dx, precision=hi)
         ata = ata + 1e-9 * jnp.eye(d, dtype=dx.dtype)[None]
-        atb = jnp.einsum("kqa,kq->ka", dx, df)
+        atb = jnp.einsum("kqa,kq->ka", dx, df, precision=hi)
         g = jnp.linalg.solve(ata, atb[..., None])[..., 0]
         gn = jnp.linalg.norm(g, axis=-1, keepdims=True) + 1e-12
         model_pt = best_x - radius * g / gn

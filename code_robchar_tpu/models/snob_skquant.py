@@ -14,8 +14,8 @@ objective shims, with the reference's record/top-c/fcall semantics
 stack can therefore produce exact-SNOBFIT controller sets and
 re-validate the surrogate against them (VERDICT r3 next #3).
 
-skquant/SQSnobFit is NOT shipped in the primary TPU container and has no
-egress to install from (verified rounds 3 and 5,
+skquant/SQSnobFit is not among the installed dependencies and could not
+be installed (verified rounds 3 and 5,
 artifacts/figparity/skquant_install_attempt.log).  Since round 5 the
 adapter therefore resolves its engine through ``_load_backend``: the
 real skquant stack when installed, else the VENDORED implementation of
@@ -27,7 +27,7 @@ stack and raises ImportError when absent.
 The optimizer itself is host-side sequential by nature (SNOBFIT's
 branch-and-fit driver is stateful Python/C++); only the objective
 evaluations ride the JAX kernels.  This is a parity/validation tool,
-not a production path — use ``models.SNOB`` on TPU.
+not a production path — use ``models.SNOB`` on the device.
 """
 
 from __future__ import annotations

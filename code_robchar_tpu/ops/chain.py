@@ -50,9 +50,9 @@ def xx_hamiltonian(n: int, topo: str = "chain", heisenberg: bool = False,
     if heisenberg:
         t = 0.5 * np.triu(h).sum().real * np.ones(n) - np.sum(h, axis=1).real
         h = h + np.diag(t)
-    # real dtypes are first-class: the XX/XXZ drift is real symmetric, and
-    # TPU backends have no complex support — pass e.g. jnp.float32 to get
-    # the split-real production form (ops/realform.py).
+    # real dtypes are first-class: the XX/XXZ drift is real symmetric —
+    # pass e.g. jnp.float32 to get the split-real production form
+    # (ops/realform.py).
     if not np.issubdtype(np.dtype(dtype), np.complexfloating):
         return jnp.asarray(h.real, dtype=dtype)
     return jnp.asarray(h, dtype=dtype)
@@ -60,7 +60,7 @@ def xx_hamiltonian(n: int, topo: str = "chain", heisenberg: bool = False,
 
 def xx_hamiltonian_real(n: int, topo: str = "chain",
                         heisenberg: bool = False, dtype=None) -> jnp.ndarray:
-    """Real-symmetric drift for the TPU production path."""
+    """Real-symmetric drift for the production (split-real) path."""
     if dtype is None:
         dtype = config.real_dtype()
     return xx_hamiltonian(n, topo=topo, heisenberg=heisenberg, dtype=dtype)

@@ -3,8 +3,8 @@
 Why not `jnp.linalg.eigh` everywhere?  The MC robustness engine diagonalises
 O(1e7) *tiny* (n<=10) Hermitian matrices per sweep (SURVEY.md §6 north star).
 XLA's stock eigh targets large matrices; for a huge batch of tiny ones the
-right TPU shape is the opposite: make the *batch* the vector dimension and
-run the O(n^2) rotation schedule in lockstep on the VPU.  Every operation in
+right shape is the opposite: make the *batch* the vector dimension and
+run the O(n^2) rotation schedule in lockstep across it.  Every operation in
 a Jacobi sweep (rotation angles, row/column updates) is elementwise over the
 batch, so a (B, n, n) problem compiles to ~sweeps * n(n-1)/2 fused
 (B,)-shaped vector ops — no per-matrix control flow, no dynamic shapes.
@@ -24,8 +24,8 @@ float64 (parity regime) — validated against LAPACK eigh in
 tests/test_propagate.py.  For n > 10 pass ``sweeps`` explicitly.
 
 This file is the pure-XLA formulation; the Pallas kernels in
-``code_robchar_tpu.ops.pallas_jacobi`` implement the same schedule with
-explicit VMEM staging for peak throughput.
+``code_robchar_tpu.ops.pallas_jacobi`` implement the same rotations with
+each matrix entry held in registers for the whole solve.
 """
 
 from __future__ import annotations

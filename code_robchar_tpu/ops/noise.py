@@ -75,7 +75,7 @@ def structured_perturbation_parts(key: jax.Array, n: int, scale: jnp.ndarray,
     Hermitian complex variant).  Same per-key draws as the complex form:
     folding the same key yields z == zr + 1j*zi (pinned in tests).
 
-    This is the TPU production path — no complex dtype is ever formed.
+    This is the production path — no complex dtype is ever formed.
     """
     if dtype is None:
         dtype = jnp.zeros((), config.complex_dtype()).real.dtype

@@ -1,98 +1,70 @@
-"""Pallas TPU kernel: batched split-complex Jacobi transfer fidelity.
+"""Pallas kernels (Triton route): batched Jacobi transfer fidelities.
 
-The XLA lanes formulation (ops/realform.py) expresses each Jacobi rotation
-as slice updates on (n, n, B) HBM-resident arrays; XLA fuses well but
-still materialises intermediate tiles between rotation steps.  This kernel
-pins the ENTIRE working set — the split Hamiltonian (n^2 rows x B lanes)
-and the two carried eigenvector rows — in VMEM scratch for all
-sweeps x n(n-1)/2 rotations, touching HBM exactly twice per element:
-one read of the assembled Hamiltonian, one write of the fidelity.
+The XLA lanes formulation (ops/realform.py) expresses each Jacobi
+rotation as slice updates on (n, n, B) arrays, and on the GPU every
+rotation becomes several small kernels that stream the whole batch
+through device memory.  One lattice element's working set is tiny (the
+triangle of an n <= 10 Hermitian plus the carried eigenvector rows), so
+these kernels give each program a block of ``block`` lattice elements
+and keep every matrix entry as one (block,) register vector for the
+whole solve: device memory is read once (the assembled Hamiltonian) and
+written once (the fidelity, amplitude or gradient).
 
-Layout: a (n*n, TILE) VMEM block per grid step; matrix entry (i, j) lives
-on sublane row i*n+j, the batch rides the 128-wide lane dimension.  The
-rotation schedule is static and fully unrolled inside the kernel; every
-operation is a (1, TILE) or (n, TILE) VPU vector op with static sublane
-indices.
+Layout: inputs are (n*n, B) with matrix entry (i, j) on row i*n + j and
+the batch last.  Only the upper triangle is loaded (the lower one is its
+mirror); the batch is edge-padded to a multiple of ``block`` by the
+wrappers, because Triton block shapes are powers of two.  The rotation
+schedule (``pair_schedule``) runs as a loop over one unrolled stage of
+disjoint rotations followed by a relabelling of the matrix slots
+(``stage_relabel``), which keeps the compiled kernel small.
 
-Used by the MC engine when `use_pallas=True` on TPU backends; numerically
-identical to realform.fidelity_herm_lanes (same schedule, same arithmetic)
-— pinned in tests/test_pallas.py on CPU interpret mode and validated on
-device by the bench checksum.
+The kernels use the same arithmetic as the lanes path (symmetric
+update, closed-form pivot block, Rutishauser angles) in round-robin
+pivot order, and agree with it to the f32 rounding floor
+(tests/test_pallas.py, interpret mode).  ``ops.select`` decides where
+they run.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 
-DEFAULT_TILE = 1024
+from code_robchar_tpu.ops.realform import _sweeps_for
+
+#: lattice elements per program: one element per thread, one warp per
+#: 32 elements.  Small batches take narrow programs so that more SMs
+#: get one.
+BLOCK_WIDE = 128
+BLOCK_NARROW = 32
+#: batches below this many elements take BLOCK_NARROW
+WIDE_FROM = 128 * 132
+
+_EPS = 1e-7
 
 
-def pick_tile(b: int, max_tile: int = DEFAULT_TILE) -> tuple[int, int]:
-    """Legal Mosaic lane tiling for a batch of ``b``: (tile, padded_b).
-
-    Mosaic requires each block's lane (last) dimension be a multiple of
-    128 OR equal the full array dimension.  The dispatch wrappers below
-    previously required b % 1024 == 0 and silently fell back to the
-    ~5x-slower XLA lanes kernel otherwise (e.g. the NM shrink chain at
-    512 lanes, b = 512*(d+1)); production batch widths can also be
-    data-dependent with no legal dividing tile at all (observed
-    b = 5831 from a budget-scheduled restart count).  Policy:
-
-    - b <= max_tile: one whole-array block (always legal, no padding);
-    - else the largest multiple-of-128 tile <= max_tile dividing b;
-    - else pad b up to the next multiple of 128 and take the largest
-      multiple-of-128 tile <= max_tile dividing that (128 always does).
-
-    Callers pad operands up to ``padded_b`` lanes (edge-replicated) and
-    slice results back to ``b``; worst-case padding is 127 lanes.
-    """
-    if b <= max_tile:
-        return b, b
-    for bp in (b, -(-b // 128) * 128):
-        t = (max_tile // 128) * 128
-        while t >= 128:
-            if bp % t == 0:
-                return t, bp
-            t -= 128
-    raise AssertionError("unreachable: 128 divides the padded batch")
+def pick_block(b: int) -> tuple[int, int]:
+    """(block, padded_b) for a batch of ``b`` lattice elements."""
+    block = BLOCK_WIDE if b >= WIDE_FROM else BLOCK_NARROW
+    return block, -(-b // block) * block
 
 
-#: rotation-ordering default for every Pallas Jacobi kernel.
-#: "roundrobin" arranges each sweep's n(n-1)/2 pivots into n-1 (n odd:
-#: n) STAGES of disjoint pairs (circle-method tournament schedule) and
-#: hoists the whole stage's angle computations ahead of its rotations.
-#: Disjoint pivots make the hoist exact — a rotation never touches
-#: another stage-member's pivot entries — and make the stage's rotation
-#: streams data-independent, so the VPU can overlap the angle cluster's
-#: div/sqrt latencies and interleave the row updates.  Measured on one
-#: v5e chip (artifacts/perf/ROOFLINE.md): the dependent-chain ALU probe
-#: runs at 4.7 cycles/FMA vs 0.4-1.1 with 4-8 independent streams, and
-#: the reorder alone lifts the Hermitian fidelity kernel 50.6 -> 61.7M
-#: Hams/s (1.22x) at IDENTICAL sweep counts.  Accuracy at the
-#: production sweep policy is at the same f32 floor as cyclic for every
-#: n in 3..10 incl. near-degenerate drift-dominated batches (~1e-5).
-#: The x64 parity path (ops/realform.py lanes kernels, CPU) keeps the
-#: cyclic order — it anchors the 1e-10 reference-parity contract and is
-#: not launch-latency-bound.
-DEFAULT_ORDER = "roundrobin"
-
-
-def pair_schedule(n: int, order: str = None):
+def pair_schedule(n: int, order: str = "roundrobin"):
     """Sweep schedule as a list of stages of disjoint (p, q) pivots.
 
-    "cyclic": the classical row-major order, one pair per stage (the
-    pre-round-4 behavior).  "roundrobin": circle-method tournament —
-    every stage's pairs are pairwise disjoint and each sweep still
-    covers all n(n-1)/2 pairs exactly once."""
-    order = order or DEFAULT_ORDER
+    "cyclic": the classical row-major order, one pair per stage.
+    "roundrobin": circle-method tournament; every stage's pairs are
+    pairwise disjoint and each sweep still covers all n(n-1)/2 pairs
+    once.  The kernels use round-robin: a stage's angles are computed
+    before its rotations, which is exact because its pivots are
+    disjoint, and gives each thread independent instruction streams."""
     if order == "cyclic":
         return [[(p, q)] for p in range(n - 1) for q in range(p + 1, n)]
     if order != "roundrobin":
         raise ValueError(f"unknown rotation order {order!r}")
-    players = list(range(n)) + ([None] if n % 2 else [])
+    players = ([None] if n % 2 else []) + list(range(n))
     m = len(players)
     stages, arr = [], players[:]
     for _ in range(m - 1):
@@ -106,183 +78,56 @@ def pair_schedule(n: int, order: str = None):
     return stages
 
 
-def _rotation_body(n, sweeps, ar, ai, vr, vi, eps, order=None):
-    """Unrolled Jacobi schedule on VMEM refs.
+def stage_relabel(n: int):
+    """One round-robin stage in relabelled form: ``(pairs, perm)``.
 
-    ar/ai: (n*n, T) refs; vr/vi: (2*n, T) refs holding rows [in, out].
-
-    Symmetric update: only the column pair (A J) is rotated; rows p, q
-    are conjugate mirrors (A'[p,i] = conj(A'[i,p]) — a store + negate per
-    entry instead of a second complex rotation), and the 2x2 pivot block
-    is closed-form (A'[p,q] = 0 exactly, A'[p,p] = app - t|apq|,
-    A'[q,q] = aqq + t|apq|, Rutishauser).  ~2/3 the arithmetic of the
-    two-sided update; the imaginary diagonal stays exactly zero.  Same
-    formulation as realform._herm_rotate_lanes; pivots ordered by
-    ``pair_schedule`` (round-robin stages with hoisted angles by
-    default — see DEFAULT_ORDER)."""
-    def cmul(xr, xi, yr, yi):
-        return xr * yr - xi * yi, xr * yi + xi * yr
-
-    def angles(p, q):
-        app = ar[p * n + p, :]
-        aqq = ar[q * n + q, :]
-        xr = ar[p * n + q, :]
-        xi = ai[p * n + q, :]
-        r = jnp.sqrt(xr * xr + xi * xi)
-        active = r > eps * (jnp.abs(app) + jnp.abs(aqq) + r)
-        safe = jnp.where(active, r, 1.0)
-        pr = jnp.where(active, xr / safe, 1.0)
-        pi_ = jnp.where(active, xi / safe, 0.0)
-        tau = (aqq - app) / (2.0 * safe)
-        t = jnp.sign(tau) / (jnp.abs(tau) +
-                             jnp.sqrt(1.0 + tau * tau))
-        t = jnp.where(tau == 0.0, 1.0, t)
-        c = 1.0 / jnp.sqrt(1.0 + t * t)
-        s = t * c
-        c = jnp.where(active, c, 1.0)
-        s = jnp.where(active, s, 0.0)
-        t_eff = jnp.where(active, t, 0.0)
-        return pr, pi_, c, s, t_eff, r, xr, xi, app, aqq, active
-
-    def apply(p, q, ang):
-        pr, pi_, c, s, t_eff, r, xr, xi, app, aqq, active = ang
-        # columns p, q of A at rows i not in {p, q}, mirrored
-        # into rows p, q by conjugation
-        for i in range(n):
-            if i == p or i == q:
-                continue
-            cpr = ar[i * n + p, :]
-            cpi = ai[i * n + p, :]
-            cqr = ar[i * n + q, :]
-            cqi = ai[i * n + q, :]
-            tr, ti = cmul(pr, -pi_, cqr, cqi)
-            npr_ = c * cpr - s * tr
-            npi_ = c * cpi - s * ti
-            ar[i * n + p, :] = npr_
-            ai[i * n + p, :] = npi_
-            ar[p * n + i, :] = npr_
-            ai[p * n + i, :] = -npi_
-            tr, ti = cmul(pr, pi_, cpr, cpi)
-            nqr_ = s * tr + c * cqr
-            nqi_ = s * ti + c * cqi
-            ar[i * n + q, :] = nqr_
-            ai[i * n + q, :] = nqi_
-            ar[q * n + i, :] = nqr_
-            ai[q * n + i, :] = -nqi_
-
-        # closed-form pivot block
-        zr = jnp.where(active, 0.0, xr)
-        zi = jnp.where(active, 0.0, xi)
-        ar[p * n + p, :] = app - t_eff * r
-        ar[q * n + q, :] = aqq + t_eff * r
-        ar[p * n + q, :] = zr
-        ar[q * n + p, :] = zr
-        ai[p * n + q, :] = zi
-        ai[q * n + p, :] = -zi
-        # ai diagonal entries start at zero and are never written
-
-        # carried V rows (2 rows x n columns)
-        for rrow in range(2):
-            wpr = vr[rrow * n + p, :]
-            wpi = vi[rrow * n + p, :]
-            wqr = vr[rrow * n + q, :]
-            wqi = vi[rrow * n + q, :]
-            tr, ti = cmul(pr, -pi_, wqr, wqi)
-            vr[rrow * n + p, :] = c * wpr - s * tr
-            vi[rrow * n + p, :] = c * wpi - s * ti
-            tr, ti = cmul(pr, pi_, wpr, wpi)
-            vr[rrow * n + q, :] = s * tr + c * wqr
-            vi[rrow * n + q, :] = s * ti + c * wqi
-
-    schedule = pair_schedule(n, order)
-    for _ in range(sweeps):
-        for stage in schedule:
-            # hoisted: a stage's pivot entries are mutually untouched,
-            # so all its angles read pre-stage values whichever order
-            # the rotations then apply in (sequential application is
-            # exactly the composed similarity transform)
-            angs = [angles(p, q) for (p, q) in stage]
-            for (p, q), ang in zip(stage, angs):
-                apply(p, q, ang)
+    The kernels hold the matrix in "slots".  Each stage rotates the fixed
+    slot pairs ``pairs`` (disjoint, p < q) and then relabels: new slot j
+    takes old slot ``perm[j]`` (a symmetric permutation of A and a column
+    permutation of the carried eigenvector rows, which changes neither
+    the spectrum nor any fidelity).  Applied n - 1 (n odd: n) times this
+    visits exactly the pairs of ``pair_schedule(n)``, stage by stage, and
+    returns every slot to its place — so one stage of code, looped,
+    replaces the unrolled sweep and keeps the compiled kernel small."""
+    odd = n % 2
+    m = n + odd                      # players, with a bye for odd n
+    pos_perm = [0, m - 1] + list(range(1, m - 1))
+    pairs = [(i - odd, m - 1 - i - odd) for i in range(odd, m // 2)]
+    perm = [pos_perm[j] - odd for j in range(odd, m)]
+    return pairs, perm
 
 
-def make_fidelity_kernel(n: int, in_spin: int, out_spin: int,
-                         sweeps: int, tile: int = DEFAULT_TILE,
-                         interpret: bool = False):
-    """Build fid = kernel(ar, ai, t): ar/ai (n*n, B), t (1, B) -> (1, B)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+class _Tri:
+    """Upper triangle of a Hermitian (or, with ``im`` None, real
+    symmetric) matrix held as register vectors; entries below the
+    diagonal are read and written through their mirror."""
 
-    eps = 1e-7
+    def __init__(self, n, re, im=None):
+        self.n, self.re, self.im = n, re, im
 
-    def kernel(ar_in, ai_in, t_in, fid_out, ar, ai, vr, vi):
-        ar[:, :] = ar_in[:, :]
-        ai[:, :] = ai_in[:, :]
-        rows = jax.lax.broadcasted_iota(jnp.int32,
-                                        (2 * n, t_in.shape[-1]), 0)
-        sel = (rows == (0 * n + in_spin)) | (rows == (1 * n + out_spin))
-        vr[:, :] = jnp.where(sel, 1.0, 0.0).astype(ar_in.dtype)
-        vi[:, :] = jnp.zeros((2 * n, t_in.shape[-1]), ar_in.dtype)
+    def get(self, i, j):
+        if i <= j:
+            return self.re[i, j], (self.im[i, j] if self.im is not None
+                                   and i < j else None)
+        im = -self.im[j, i] if self.im is not None else None
+        return self.re[j, i], im
 
-        _rotation_body(n, sweeps, ar, ai, vr, vi, eps)
-
-        # phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k])
-        t = t_in[0, :]
-        phr = jnp.zeros_like(t)
-        phi = jnp.zeros_like(t)
-        for k in range(n):
-            lam_k = ar[k * n + k, :]
-            bir = vr[0 * n + k, :]
-            bii = vi[0 * n + k, :]
-            aor = vr[1 * n + k, :]
-            aoi = vi[1 * n + k, :]
-            gr = aor * bir + aoi * bii
-            gi = aoi * bir - aor * bii
-            ang = lam_k * t
-            fr = jnp.cos(ang)
-            fi = -jnp.sin(ang)
-            phr = phr + gr * fr - gi * fi
-            phi = phi + gr * fi + gi * fr
-        fid_out[0, :] = phr * phr + phi * phi
-
-    nn = n * n
-
-    @partial(jax.jit, static_argnames=())
-    def run(ar, ai, t):
-        b = ar.shape[-1]
-        grid = (b // tile,)
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((nn, tile), lambda i: (0, i)),
-                pl.BlockSpec((nn, tile), lambda i: (0, i)),
-                pl.BlockSpec((1, tile), lambda i: (0, i)),
-            ],
-            out_specs=pl.BlockSpec((1, tile), lambda i: (0, i)),
-            out_shape=jax.ShapeDtypeStruct((1, b), ar.dtype),
-            scratch_shapes=[
-                pltpu.VMEM((nn, tile), ar.dtype),
-                pltpu.VMEM((nn, tile), ar.dtype),
-                pltpu.VMEM((2 * n, tile), ar.dtype),
-                pltpu.VMEM((2 * n, tile), ar.dtype),
-            ],
-            interpret=interpret,
-        )(ar, ai, t.reshape(1, b))
-
-    return run
+    def set(self, i, j, re, im=None):
+        if i <= j:
+            self.re[i, j] = re
+            if self.im is not None and i < j:
+                self.im[i, j] = im
+        else:
+            self.re[j, i] = re
+            if self.im is not None:
+                self.im[j, i] = -im
 
 
-def _sym_angles(n, a, p, q, eps):
-    """Rotation angle for real-symmetric pivot (p, q) from the CURRENT
-    scratch values (Rutishauser stable form; inactive lanes get the
-    identity rotation)."""
-    app = a[p * n + p, :]
-    aqq = a[q * n + q, :]
-    apq = a[p * n + q, :]
-    r = jnp.abs(apq)
-    active = r > eps * (jnp.abs(app) + jnp.abs(aqq) + r)
-    safe = jnp.where(active, apq, 1.0)
+def _angles(app, aqq, xr, xi):
+    """Rotation for pivot value x = xr + i xi (xi None: real)."""
+    r = jnp.sqrt(xr * xr + xi * xi) if xi is not None else jnp.abs(xr)
+    active = r > _EPS * (jnp.abs(app) + jnp.abs(aqq) + r)
+    safe = jnp.where(active, r if xi is not None else xr, 1.0)
     tau = (aqq - app) / (2.0 * safe)
     t = jnp.sign(tau) / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
     t = jnp.where(tau == 0.0, 1.0, t)
@@ -291,331 +136,306 @@ def _sym_angles(n, a, p, q, eps):
     c = jnp.where(active, c, 1.0)
     s = jnp.where(active, s, 0.0)
     t_eff = jnp.where(active, t, 0.0)
-    return c, s, t_eff, apq, app, aqq, active
+    if xi is None:
+        return dict(c=c, s=s, shift=t_eff * xr, active=active)
+    return dict(c=c, s=s, shift=t_eff * r, active=active,
+                pr=jnp.where(active, xr / safe, 1.0),
+                pi=jnp.where(active, xi / safe, 0.0))
 
 
-def _sym_apply(n, a, v, p, q, ang):
-    """Symmetric-update rotation at pivot (p, q): rotate columns p, q,
-    mirror into rows p, q, closed-form pivot block, rotate carried V
-    rows."""
-    c, s, t_eff, apq, app, aqq, active = ang
-    for i in range(n):
-        if i == p or i == q:
+def _rotate(a: _Tri, vr, vi, p, q, ang):
+    """Similarity rotation at pivot (p, q) (p < q): columns p, q of A
+    (rows mirrored through the triangle), closed-form pivot block, and
+    the carried eigenvector rows.  ``vi``/``a.im`` None: real case."""
+    c, s = ang["c"], ang["s"]
+    cplx = a.im is not None
+
+    def mix(xr, xi, yr, yi):
+        # (c x - s conj(ph) y, s ph x + c y), ph = pr + i pi
+        if not cplx:
+            return (c * xr - s * yr, None), (s * xr + c * yr, None)
+        pr, pi = ang["pr"], ang["pi"]
+        yr_, yi_ = pr * yr + pi * yi, pr * yi - pi * yr
+        xr_, xi_ = pr * xr - pi * xi, pr * xi + pi * xr
+        return ((c * xr - s * yr_, c * xi - s * yi_),
+                (s * xr_ + c * yr, s * xi_ + c * yi))
+
+    for i in range(a.n):
+        if i in (p, q):
             continue
-        cp = a[i * n + p, :]
-        cq = a[i * n + q, :]
-        ncp = c * cp - s * cq
-        ncq = s * cp + c * cq
-        a[i * n + p, :] = ncp
-        a[p * n + i, :] = ncp
-        a[i * n + q, :] = ncq
-        a[q * n + i, :] = ncq
-    z = jnp.where(active, 0.0, apq)
-    a[p * n + p, :] = app - t_eff * apq
-    a[q * n + q, :] = aqq + t_eff * apq
-    a[p * n + q, :] = z
-    a[q * n + p, :] = z
-    for rr in range(v.shape[0] // n):      # carried V rows
-        wp = v[rr * n + p, :]
-        wq = v[rr * n + q, :]
-        v[rr * n + p, :] = c * wp - s * wq
-        v[rr * n + q, :] = s * wp + c * wq
+        (cpr, cpi), (cqr, cqi) = a.get(i, p), a.get(i, q)
+        (npr, npi), (nqr, nqi) = mix(cpr, cpi, cqr, cqi)
+        a.set(i, p, npr, npi)
+        a.set(i, q, nqr, nqi)
+    app, aqq = a.re[p, p], a.re[q, q]
+    a.re[p, p] = app - ang["shift"]
+    a.re[q, q] = aqq + ang["shift"]
+    a.re[p, q] = jnp.where(ang["active"], 0.0, a.re[p, q])
+    if cplx:
+        a.im[p, q] = jnp.where(ang["active"], 0.0, a.im[p, q])
+    for r in range(len(vr)):
+        (nvr, nvi), (nwr, nwi) = mix(vr[r][p], vi[r][p] if cplx else None,
+                                     vr[r][q], vi[r][q] if cplx else None)
+        vr[r][p], vr[r][q] = nvr, nwr
+        if cplx:
+            vi[r][p], vi[r][q] = nvi, nwi
 
 
-def sym_sweeps_on_scratch(n, sweeps, a, v, eps=1e-7, order=None):
-    """Symmetric Jacobi on VMEM scratch ``a`` ((n*n, B): entry (i, j) on
-    sublane row i*n+j, batch on lanes), carrying the rows of ``v``
-    ((R*n, B), R carried eigenvector rows) through the rotations.
-    Shared by the amplitude kernel below and the fused rollout step
-    kernel (ops/pallas_rollout.py); symmetric-update formulation
-    (conjugate-mirror rows + closed-form pivot block).  Pivot order from
-    ``pair_schedule`` — round-robin stages with hoisted angle clusters
-    by default (DEFAULT_ORDER; exact because a stage's pivots are
-    disjoint)."""
-    schedule = pair_schedule(n, order)
-    for _ in range(sweeps):
-        for stage in schedule:
-            angs = [_sym_angles(n, a, p, q, eps) for (p, q) in stage]
-            for (p, q), ang in zip(stage, angs):
-                _sym_apply(n, a, v, p, q, ang)
+def _jacobi(n, sweeps, re, im, vr, vi):
+    """Run ``sweeps`` sweeps on register vectors: ``re``/``im`` dicts of
+    the upper triangle, ``vr``/``vi`` lists of carried eigenvector rows
+    (``im``/``vi`` None for a real symmetric matrix).  Returns them
+    updated, in slot order (``stage_relabel``): the diagonal holds the
+    eigenvalues and the rows hold the matching eigenvector components,
+    in an order that no fidelity or gradient depends on."""
+    cplx = im is not None
+    tri_keys = sorted(re)
+    im_keys = sorted(im) if cplx else []
+    rows = len(vr)
+    pairs, perm = stage_relabel(n)
+
+    def pack(re, im, vr, vi):
+        out = [re[k] for k in tri_keys] + [im[k] for k in im_keys]
+        out += [x for row in vr for x in row]
+        if cplx:
+            out += [x for row in vi for x in row]
+        return tuple(out)
+
+    def unpack(flat):
+        flat = list(flat)
+        re = {k: flat.pop(0) for k in tri_keys}
+        im = {k: flat.pop(0) for k in im_keys} if cplx else None
+        vr = [[flat.pop(0) for _ in range(n)] for _ in range(rows)]
+        vi = [[flat.pop(0) for _ in range(n)] for _ in range(rows)] \
+            if cplx else None
+        return re, im, vr, vi
+
+    def stage(_, flat):
+        re, im, vr, vi = unpack(flat)
+        a = _Tri(n, re, im)
+        # a stage's pivots are disjoint: every angle reads pre-stage
+        # values whichever order the rotations then apply in
+        angs = [_angles(re[p, p], re[q, q], re[p, q],
+                        im[p, q] if cplx else None) for p, q in pairs]
+        for (p, q), ang in zip(pairs, angs):
+            _rotate(a, vr, vi, p, q, ang)
+        new = {k: a.get(perm[k[0]], perm[k[1]]) for k in tri_keys}
+        re = {k: v[0] for k, v in new.items()}
+        im = {k: new[k][1] for k in im_keys} if cplx else None
+        vr = [[row[perm[j]] for j in range(n)] for row in vr]
+        if cplx:
+            vi = [[row[perm[j]] for j in range(n)] for row in vi]
+        return pack(re, im, vr, vi)
+
+    stages = len(pair_schedule(n))
+    return unpack(jax.lax.fori_loop(0, sweeps * stages, stage,
+                                    pack(re, im, vr, vi)))
 
 
-def transfer_amp_from_scratch(n, a, v, t):
-    """(phr, phi) transfer amplitude from diagonalised scratch ``a`` and
-    carried eigenvector rows ``v`` (in-spin row 0, out-spin row 1)."""
-    phr = jnp.zeros_like(t)
-    phi = jnp.zeros_like(t)
+def _load_triangle(ref, n, strict=False):
+    return {(i, j): ref[i * n + j, :] for i in range(n)
+            for j in range(i + (1 if strict else 0), n)}
+
+
+def _unit_rows(n, rows, like):
+    """Carried eigenvector rows of the identity: rows[r] of V."""
+    one, zero = jnp.ones_like(like), jnp.zeros_like(like)
+    return [[one if k == row else zero for k in range(n)] for row in rows]
+
+
+def _herm_fid_kernel(n, in_spin, out_spin, sweeps, ar_ref, ai_ref, t_ref,
+                     fid_ref):
+    re = _load_triangle(ar_ref, n)
+    im = _load_triangle(ai_ref, n, strict=True)
+    t = t_ref[:]
+    vr = _unit_rows(n, (in_spin, out_spin), t)
+    vi = [[jnp.zeros_like(t) for _ in range(n)] for _ in range(2)]
+    re, im, vr, vi = _jacobi(n, sweeps, re, im, vr, vi)
+    # phi = sum_k V[out,k] e^{-i t lam_k} conj(V[in,k])
+    phr = phi = None
     for k in range(n):
-        w = v[0 * n + k, :] * v[1 * n + k, :]
-        ang = a[k * n + k, :] * t
-        phr = phr + w * jnp.cos(ang)
-        phi = phi - w * jnp.sin(ang)
-    return phr, phi
+        gr = vr[1][k] * vr[0][k] + vi[1][k] * vi[0][k]
+        gi = vi[1][k] * vr[0][k] - vr[1][k] * vi[0][k]
+        ang = re[k, k] * t
+        fr, fi = jnp.cos(ang), -jnp.sin(ang)
+        tr, ti = gr * fr - gi * fi, gr * fi + gi * fr
+        phr = tr if phr is None else phr + tr
+        phi = ti if phi is None else phi + ti
+    fid_ref[:] = phr * phr + phi * phi
 
 
-def make_sym_amp_kernel(n: int, in_spin: int, out_spin: int,
-                        sweeps: int, tile: int = DEFAULT_TILE,
-                        interpret: bool = False):
-    """REAL symmetric variant: amp = kernel(a, t): a (n*n, B), t (1, B)
-    -> (2, B) transfer amplitude (phr, phi).
-
-    ~1/3 the arithmetic of the Hermitian kernel; this is the RL
-    environment's per-step physics (training noise is real,
-    RLreinforce...:122-133) fused into ONE kernel launch — the rollout
-    scan otherwise pays ~10^2 tiny-fusion launches per step.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    eps = 1e-7
-
-    def kernel(a_in, t_in, amp_out, a, v):
-        a[:, :] = a_in[:, :]
-        b = t_in.shape[-1]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (2 * n, b), 0)
-        sel = (rows == (0 * n + in_spin)) | (rows == (1 * n + out_spin))
-        v[:, :] = jnp.where(sel, 1.0, 0.0).astype(a_in.dtype)
-        sym_sweeps_on_scratch(n, sweeps, a, v, eps)
-        phr, phi = transfer_amp_from_scratch(n, a, v, t_in[0, :])
-        amp_out[0, :] = phr
-        amp_out[1, :] = phi
-
-    nn = n * n
-
-    @jax.jit
-    def run(a, t):
-        b = a.shape[-1]
-        grid = (b // tile,)
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((nn, tile), lambda i: (0, i)),
-                pl.BlockSpec((1, tile), lambda i: (0, i)),
-            ],
-            out_specs=pl.BlockSpec((2, tile), lambda i: (0, i)),
-            out_shape=jax.ShapeDtypeStruct((2, b), a.dtype),
-            scratch_shapes=[
-                pltpu.VMEM((nn, tile), a.dtype),
-                pltpu.VMEM((2 * n, tile), a.dtype),
-            ],
-            interpret=interpret,
-        )(a, t.reshape(1, b))
-
-    return run
+def _sym_amp_kernel(n, in_spin, out_spin, sweeps, a_ref, t_ref, phr_ref,
+                    phi_ref):
+    t = t_ref[:]
+    re, _, vr, _ = _jacobi(n, sweeps, _load_triangle(a_ref, n), None,
+                           _unit_rows(n, (in_spin, out_spin), t), None)
+    phr = phi = None
+    for k in range(n):
+        w = vr[0][k] * vr[1][k]
+        ang = re[k, k] * t
+        tr, ti = w * jnp.cos(ang), -w * jnp.sin(ang)
+        phr = tr if phr is None else phr + tr
+        phi = ti if phi is None else phi + ti
+    phr_ref[:] = phr
+    phi_ref[:] = phi
 
 
-def make_sym_grad_kernel(n: int, in_spin: int, out_spin: int,
-                         sweeps: int, tile: int = DEFAULT_TILE,
-                         interpret: bool = False):
-    """REAL symmetric exact-gradient kernel: (a (n*n, B), t (1, B)) ->
-    (err (1, B), grad (n+1, B)).
+def _sym_grad_kernel(n, in_spin, out_spin, sweeps, a_ref, t_ref, err_ref,
+                     grad_ref):
+    """Exact (infidelity, gradient) in one solve: the full eigenvector
+    matrix rides as n carried rows, then the Daleckii-Krein contraction
+    (realform.infidelity_and_gradient_sym_lanes) is accumulated entry by
+    entry, using the symmetry of the divided-difference matrix."""
+    t = t_ref[:]
+    re, _, v, _ = _jacobi(n, sweeps, _load_triangle(a_ref, n), None,
+                          _unit_rows(n, range(n), t), None)
+    lam = [re[k, k] for k in range(n)]
+    v_out, v_in = v[out_spin], v[in_spin]
+    fr = [jnp.cos(lam[k] * t) for k in range(n)]
+    fi = [-jnp.sin(lam[k] * t) for k in range(n)]
+    w = [v_out[k] * v_in[k] for k in range(n)]
+    phr, phi = w[0] * fr[0], w[0] * fi[0]
+    hur, hui = lam[0] * phr, lam[0] * phi
+    for k in range(1, n):
+        phr = phr + w[k] * fr[k]
+        phi = phi + w[k] * fi[k]
+        hur = hur + lam[k] * w[k] * fr[k]
+        hui = hui + lam[k] * w[k] * fi[k]
+    err_ref[:] = 1.0 - (phr * phr + phi * phi)
 
-    One kernel launch computes, for every lane: the full-V Jacobi
-    eigendecomposition, the transfer infidelity, and the Daleckii-Krein
-    gradient w.r.t. the n diagonal biases and the readout time — the
-    optimizer zoo's entire objective+gradient evaluation fused into a
-    single launch.  Same formulation as
-    realform.infidelity_and_gradient_sym_lanes (parity pinned in
-    tests/test_pallas.py via interpret mode).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    eps = 1e-7
-
-    def kernel(a_in, t_in, err_out, grad_out, a, v):
-        a[:, :] = a_in[:, :]
-        b = t_in.shape[-1]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (n * n, b), 0)
-        # identity: V[r, k] lives at sublane r*n+k
-        sel = (rows % (n + 1)) == 0
-        v[:, :] = jnp.where(sel, 1.0, 0.0).astype(a_in.dtype)
-
-        # same rotation math as sym_sweeps_on_scratch (v carries ALL n
-        # eigenvector rows here); round-robin stages by default
-        sym_sweeps_on_scratch(n, sweeps, a, v, eps)
-
-        t = t_in[0, :]
-        lam = [a[k * n + k, :] for k in range(n)]
-        fr = [jnp.cos(lam[k] * t) for k in range(n)]
-        fi = [-jnp.sin(lam[k] * t) for k in range(n)]
-        v_out = [v[out_spin * n + k, :] for k in range(n)]
-        v_in = [v[in_spin * n + k, :] for k in range(n)]
-        w = [v_out[k] * v_in[k] for k in range(n)]
-
-        phr = w[0] * fr[0]
-        phi = w[0] * fi[0]
-        for k in range(1, n):
-            phr = phr + w[k] * fr[k]
-            phi = phi + w[k] * fi[k]
-        err_out[0, :] = 1.0 - (phr * phr + phi * phi)
-
-        # Daleckii-Krein gamma entries on the fly, via the
-        # cancellation-free sinc identity (realform._gamma_parts):
-        # accurate at every eigenvalue gap incl. exact degeneracies
-        def gamma(j, k):
+    # dphi_l = sum_jk V[l,j] V[l,k] Gamma_jk V[out,j] V[in,k]; Gamma is
+    # symmetric, so each unordered (j, k) pair is visited once
+    dr = [None] * n
+    di = [None] * n
+    for j in range(n):
+        for k in range(j, n):
             x = 0.5 * (lam[j] - lam[k]) * t
             small = jnp.abs(x) < 1e-3
             xs = jnp.where(small, 1.0, x)
-            s = jnp.where(small, 1.0 - x * x * (1.0 / 6.0),
-                          jnp.sin(xs) / xs)
-            ang = 0.5 * (lam[j] + lam[k]) * t
-            return (-t * s * jnp.sin(ang), -t * s * jnp.cos(ang))
+            sinc = jnp.where(small, 1.0 - x * x * (1.0 / 6.0),
+                             jnp.sin(xs) / xs)
+            mid = 0.5 * (lam[j] + lam[k]) * t
+            gr = -t * sinc * jnp.sin(mid)
+            gi = -t * sinc * jnp.cos(mid)
+            cjk = w[j] if j == k else \
+                v_out[j] * v_in[k] + v_out[k] * v_in[j]
+            cr, ci = gr * cjk, gi * cjk
+            for l in range(n):
+                vv = v[l][j] * v[l][k]
+                dr[l] = vv * cr if dr[l] is None else dr[l] + vv * cr
+                di[l] = vv * ci if di[l] is None else di[l] + vv * ci
+    for l in range(n):
+        grad_ref[l, :] = -2.0 * (dr[l] * phr + di[l] * phi)
+    grad_ref[n, :] = -2.0 * (hui * phr - hur * phi)
 
-        g_cache = [[gamma(j, k) for k in range(n)] for j in range(n)]
 
-        for l in range(n):
-            vl = [v[l * n + k, :] for k in range(n)]
-            dphr = None
-            dphi = None
-            for j in range(n):
-                a_lj = v_out[j] * vl[j]
-                sr = None
-                si = None
-                for k in range(n):
-                    b_lk = vl[k] * v_in[k]
-                    gr_jk, gi_jk = g_cache[j][k]
-                    tr = gr_jk * b_lk
-                    ti = gi_jk * b_lk
-                    sr = tr if sr is None else sr + tr
-                    si = ti if si is None else si + ti
-                dphr = a_lj * sr if dphr is None else dphr + a_lj * sr
-                dphi = a_lj * si if dphi is None else dphi + a_lj * si
-            grad_out[l, :] = -2.0 * (dphr * phr + dphi * phi)
+@lru_cache(maxsize=64)
+def _build(kind: str, n: int, in_spin: int, out_spin: int, sweeps: int,
+           block: int, interpret: bool):
+    """jitted (inputs...) -> outputs for one kernel configuration."""
+    from functools import partial
 
-        hur = lam[0] * w[0] * fr[0]
-        hui = lam[0] * w[0] * fi[0]
-        for k in range(1, n):
-            hur = hur + lam[k] * w[k] * fr[k]
-            hui = hui + lam[k] * w[k] * fi[k]
-        grad_out[n, :] = -2.0 * (hui * phr - hur * phi)
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as pltriton
 
     nn = n * n
+    mat = pl.BlockSpec((nn, block), lambda i: (0, i))
+    vec = pl.BlockSpec((block,), lambda i: (i,))
+    body, n_mats = {"herm_fid": (_herm_fid_kernel, 2),
+                    "sym_amp": (_sym_amp_kernel, 1),
+                    "sym_grad": (_sym_grad_kernel, 1)}[kind]
+    kernel = partial(body, n, in_spin, out_spin, sweeps)
 
     @jax.jit
-    def run(a, t):
-        b = a.shape[-1]
-        grid = (b // tile,)
+    def run(*args):
+        b = args[-1].shape[0]
+        dt = args[-1].dtype
+        if kind == "sym_grad":
+            out_specs = [vec, pl.BlockSpec((n + 1, block),
+                                           lambda i: (0, i))]
+            out_shape = [jax.ShapeDtypeStruct((b,), dt),
+                         jax.ShapeDtypeStruct((n + 1, b), dt)]
+        else:
+            n_out = 1 if kind == "herm_fid" else 2
+            out_specs = [vec] * n_out
+            out_shape = [jax.ShapeDtypeStruct((b,), dt)] * n_out
         return pl.pallas_call(
             kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((nn, tile), lambda i: (0, i)),
-                pl.BlockSpec((1, tile), lambda i: (0, i)),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, tile), lambda i: (0, i)),
-                pl.BlockSpec((n + 1, tile), lambda i: (0, i)),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((1, b), a.dtype),
-                jax.ShapeDtypeStruct((n + 1, b), a.dtype),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((nn, tile), a.dtype),
-                pltpu.VMEM((nn, tile), a.dtype),
-            ],
+            grid=(b // block,),
+            in_specs=[mat] * n_mats + [vec],
+            out_specs=out_specs,
+            out_shape=out_shape,
+            compiler_params=pltriton.CompilerParams(
+                num_warps=block // 32, num_stages=1),
             interpret=interpret,
-        )(a, t.reshape(1, b))
+            name=f"jacobi_{kind}_n{n}",
+        )(*args)
 
     return run
 
 
-from functools import lru_cache
+def _call(kind, mats, t, n, in_spin, out_spin, sweeps, block, interpret):
+    """Pad the batch (last axis) to a multiple of the block with copies
+    of its last element, run, and slice the padding off."""
+    b = t.shape[0]
+    if block is None:
+        block, bp = pick_block(b)
+    else:
+        bp = -(-b // block) * block
+    if bp != b:
+        mats = [jnp.concatenate(
+            [m, jnp.broadcast_to(m[:, -1:], (m.shape[0], bp - b))], axis=1)
+            for m in mats]
+        t = jnp.concatenate([t, jnp.broadcast_to(t[-1:], (bp - b,))])
+    if sweeps is None:
+        sweeps = _sweeps_for(t.dtype, n)
+    out = _build(kind, n, in_spin, out_spin, sweeps, block,
+                 interpret)(*mats, t)
+    return [o[..., :b] for o in out]
 
-from code_robchar_tpu.ops.realform import _sweeps_for
 
-_kernel_cache = lru_cache(maxsize=64)(make_fidelity_kernel)
-_sym_kernel_cache = lru_cache(maxsize=64)(make_sym_amp_kernel)
-_sym_grad_cache = lru_cache(maxsize=64)(make_sym_grad_kernel)
+def fidelity_herm_pallas(ar, ai, t, in_spin: int, out_spin: int,
+                         sweeps: int | None = None, block: int | None = None,
+                         interpret: bool = False):
+    """|<out| exp(-i t (ar + i ai)) |in>|^2: ar/ai (n, n, B) split
+    Hermitians (lanes layout), t (B,) -> (B,)."""
+    n, b = ar.shape[0], ar.shape[-1]
+    (fid,) = _call("herm_fid", [ar.reshape(n * n, b), ai.reshape(n * n, b)],
+                   t, n, in_spin, out_spin, sweeps, block, interpret)
+    return fid
+
+
+def transfer_amp_sym_pallas(a, t, in_spin: int, out_spin: int,
+                            sweeps: int | None = None,
+                            block: int | None = None,
+                            interpret: bool = False):
+    """Transfer amplitude (phr, phi) of real symmetric a (n, n, B)."""
+    n, b = a.shape[0], a.shape[-1]
+    phr, phi = _call("sym_amp", [a.reshape(n * n, b)], t, n, in_spin,
+                     out_spin, sweeps, block, interpret)
+    return phr, phi
+
+
+def fidelity_sym_pallas(a, t, in_spin: int, out_spin: int,
+                        sweeps: int | None = None, block: int | None = None,
+                        interpret: bool = False):
+    phr, phi = transfer_amp_sym_pallas(a, t, in_spin, out_spin, sweeps,
+                                       block, interpret)
+    return phr * phr + phi * phi
 
 
 def infidelity_and_gradient_sym_pallas(h0, xs, in_spin: int, out_spin: int,
                                        sweeps: int | None = None,
-                                       tile: int | None = None,
+                                       block: int | None = None,
                                        interpret: bool = False):
     """Batched exact (infidelity, gradient): h0 (n, n), xs (B, n+1) ->
-    (err (B,), grad (B, n+1)) via the fused Pallas kernel.  With
-    tile=None the batch is tiled (and edge-padded when needed) by
-    pick_tile; an explicit ``tile`` must divide B."""
-    n = h0.shape[-1]
-    b = xs.shape[0]
-    if tile is None:
-        tile, bp = pick_tile(b)
-        if bp != b:
-            xs = jnp.concatenate(
-                [xs, jnp.broadcast_to(xs[-1:], (bp - b, xs.shape[1]))])
-    bp = xs.shape[0]
+    (err (B,), grad (B, n+1)); H = h0 + diag(x[:n]), T = |x[n]|."""
+    n, b = h0.shape[-1], xs.shape[0]
     dt = h0.dtype
-    a = jnp.broadcast_to(h0[:, :, None], (n, n, bp)).astype(dt)
+    a = jnp.broadcast_to(h0[:, :, None], (n, n, b)).astype(dt)
     for i in range(n):
         a = a.at[i, i].add(xs[:, i].astype(dt))
     t = jnp.abs(xs[:, n]).astype(dt)
-    if sweeps is None:
-        sweeps = _sweeps_for(dt, n)
-    run = _sym_grad_cache(n, in_spin, out_spin, sweeps, tile, interpret)
-    err, grad = run(a.reshape(n * n, bp), t)
-    return err[0, :b], grad.T[:b]
-
-
-def transfer_amp_sym_pallas(a: jnp.ndarray, t: jnp.ndarray, in_spin: int,
-                            out_spin: int, sweeps: int | None = None,
-                            tile: int | None = None,
-                            interpret: bool = False):
-    """Lanes-layout REAL-symmetric transfer amplitude via the Pallas
-    kernel: a (n, n, B), t (B,) -> (phr, phi) each (B,).  With tile=None
-    the batch is tiled (and edge-padded when needed) by pick_tile; an
-    explicit ``tile`` must divide B."""
-    n = a.shape[0]
-    b = a.shape[-1]
-    if tile is None:
-        tile, bp = pick_tile(b)
-        if bp != b:
-            a = jnp.concatenate(
-                [a, jnp.broadcast_to(a[..., -1:], (n, n, bp - b))], axis=-1)
-            t = jnp.concatenate([t, jnp.broadcast_to(t[-1:], (bp - b,))])
-    if sweeps is None:
-        sweeps = _sweeps_for(a.dtype, n)
-    run = _sym_kernel_cache(n, in_spin, out_spin, sweeps, tile, interpret)
-    amp = run(a.reshape(n * n, a.shape[-1]), t)
-    return amp[0, :b], amp[1, :b]
-
-
-def fidelity_sym_pallas(a: jnp.ndarray, t: jnp.ndarray, in_spin: int,
-                        out_spin: int, sweeps: int | None = None,
-                        tile: int | None = None,
-                        interpret: bool = False) -> jnp.ndarray:
-    phr, phi = transfer_amp_sym_pallas(a, t, in_spin, out_spin, sweeps,
-                                       tile, interpret)
-    return phr * phr + phi * phi
-
-
-def fidelity_herm_pallas(ar: jnp.ndarray, ai: jnp.ndarray, t: jnp.ndarray,
-                         in_spin: int, out_spin: int,
-                         sweeps: int | None = None,
-                         tile: int | None = None,
-                         interpret: bool = False) -> jnp.ndarray:
-    """Lanes-layout fidelity via the Pallas kernel.
-
-    ar/ai: (n, n, B) split Hamiltonians, t: (B,).  With tile=None the
-    batch is tiled (and edge-padded when needed) by pick_tile; an
-    explicit ``tile`` must divide B.
-    """
-    n = ar.shape[0]
-    b = ar.shape[-1]
-    if tile is None:
-        tile, bp = pick_tile(b)
-        if bp != b:
-            pad = (n, n, bp - b)
-            ar = jnp.concatenate(
-                [ar, jnp.broadcast_to(ar[..., -1:], pad)], axis=-1)
-            ai = jnp.concatenate(
-                [ai, jnp.broadcast_to(ai[..., -1:], pad)], axis=-1)
-            t = jnp.concatenate([t, jnp.broadcast_to(t[-1:], (bp - b,))])
-    if sweeps is None:
-        sweeps = _sweeps_for(ar.dtype, n)
-    run = _kernel_cache(n, in_spin, out_spin, sweeps, tile, interpret)
-    bp = ar.shape[-1]
-    fid = run(ar.reshape(n * n, bp), ai.reshape(n * n, bp), t)
-    return fid.reshape(bp)[:b]
+    err, grad = _call("sym_grad", [a.reshape(n * n, b)], t, n, in_spin,
+                      out_spin, sweeps, block, interpret)
+    return err, grad.T

@@ -6,7 +6,7 @@ RLreinforce...:157/172/234) O(1e6-1e8) times per paper run, and obtains
 bias-gradients with a 2N x 2N augmented-matrix expm trick
 (qnewton.py:190-197).
 
-TPU-native design: every Hamiltonian here is Hermitian, so the propagator is
+Design: every Hamiltonian here is Hermitian, so the propagator is
 computed *exactly* in the eigenbasis, ``U = V exp(-i T diag(lam)) V^H``, via a
 batched Hermitian eigendecomposition.  All quantities downstream of the eigh
 are tiny dense contractions that XLA fuses; the whole thing vmaps over
@@ -26,8 +26,8 @@ every gap including degeneracies (SURVEY.md §7.4 "gradient parity";
 VERDICT r4 weak #2).
 
 The eigensolver is pluggable: `jnp.linalg.eigh` (LAPACK-exact on CPU for the
-1e-10 parity bar) or the batched VPU-friendly Jacobi solver in
-``code_robchar_tpu.ops.eigh`` (TPU throughput path).
+1e-10 parity bar) or the batched Jacobi solver in
+``code_robchar_tpu.ops.eigh`` (throughput path).
 """
 
 from __future__ import annotations
@@ -168,8 +168,8 @@ def infidelity_and_gradient(h0: jnp.ndarray, x: jnp.ndarray, in_spin: int,
     # A[l, j] = V[out, j] * conj(V[l, j]);  B[l, k] = V[l, k] * conj(V[in, k])
     a = v_out[..., None, :] * v.conj()               # (..., l, j) via rows of V
     b = v * v_in_c[..., None, :]                     # (..., l, k)
-    # precision pin: default-precision f32 dots ride the MXU in bf16
-    # on TPU (5e-3-class gradient error); HIGHEST keeps the f32 floor
+    # precision pin: a default-precision f32 dot may run in reduced
+    # precision (TF32 on the GPU); HIGHEST keeps the f32 floor
     dphi_bias = jnp.einsum("...lj,...jk,...lk->...l", a, gamma, b,
                            precision=jax.lax.Precision.HIGHEST)
     grad_bias = -2.0 * (dphi_bias * phi.conj()[..., None]).real

@@ -1,8 +1,8 @@
 """Split real/imaginary formulations of the hot kernels.
 
-TPU backends expose no complex dtype on the hot path (and XLA emulates
-complex as (re, im) pairs regardless), so every production kernel here is
-written in pure REAL arithmetic:
+No complex dtype rides the hot path (XLA and the Pallas kernels work on
+(re, im) pairs regardless), so every production kernel here is written in
+pure REAL arithmetic:
 
 - the *training* path (optimizer objectives, RL env): Hamiltonians are
   genuinely real symmetric — the XX drift is real and the training-side
@@ -17,7 +17,7 @@ written in pure REAL arithmetic:
 
 Numerical contract: at float64 these agree with the complex
 implementations in ops/propagate.py to <=1e-10 (tests/test_realform.py);
-at float32 on TPU they are the throughput regime.
+at float32 on the GPU they are the throughput regime.
 
 The propagator itself is never materialised: for a transfer fidelity only
 the (out, in) amplitude phi = sum_k V[out,k] e^{-i T l_k} conj(V[in,k]) is
@@ -383,11 +383,10 @@ def infidelity_and_gradient_sym(h0: jnp.ndarray, x: jnp.ndarray,
     # A[l, j] = V[out, j] V[l, j];  B[l, k] = V[l, k] V[in, k]  (all real)
     a = v_out[..., None, :] * v
     b = v * v_in[..., None, :]
-    # precision pin: on TPU, default-precision einsums lower f32 dots
-    # to bf16 MXU passes — measured 1e-2 max / 5e-3 p99 absolute
-    # gradient error on-device vs the f64 oracle (round-5 device
-    # numerics tier), while HIGHEST keeps the full-f32 2e-5 floor.
-    # These contractions are n<=10 wide; MXU time is irrelevant here.
+    # precision pin: a default-precision f32 einsum may run in reduced
+    # precision (TF32 on the GPU, ~3 decimal digits), far above the f32
+    # gradient floor; HIGHEST keeps it.  These contractions are n<=10
+    # wide, so the matrix units buy nothing here.
     dphr = jnp.einsum("...lj,...jk,...lk->...l", a, gr, b,
                       precision=jax.lax.Precision.HIGHEST)
     dphi = jnp.einsum("...lj,...jk,...lk->...l", a, gi, b,
@@ -411,11 +410,11 @@ def split_hermitian(h: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 # --------------------------------------------------------------------------
 # batch-in-lanes ("lanes") formulation
 #
-# The (B, n, n) layout wastes the VPU: the minor dimension holds only n<=10
-# elements of a 128-lane register.  The lanes formulation stores the batch
-# LAST — arrays are (n, n, B) with every rotation touching (n, B) or (B,)
-# tiles whose minor dimension is the full batch — so each vector op streams
-# 128 matrices per lane-group.  This is the MC engine's production layout.
+# The (B, n, n) layout leaves vector units idle: the minor dimension holds
+# only n<=10 elements.  The lanes formulation stores the batch LAST —
+# arrays are (n, n, B) with every rotation touching (n, B) or (B,) tiles
+# whose minor dimension is the full batch.  This is the MC engine's layout
+# on the CPU and the input layout of the Pallas kernels.
 # --------------------------------------------------------------------------
 
 def _herm_rotate_lanes(ar, ai, vr, vi, p, q, eps):
@@ -643,8 +642,7 @@ def infidelity_and_gradient_sym_lanes(h0: jnp.ndarray, xs: jnp.ndarray,
     # (j, k) with the batch in the last axis
     a_lj = v_out[None, :, :] * v                         # (l, j, B)
     b_lk = v * v_in[None, :, :]                          # (l, k, B)
-    # precision pin: see infidelity_and_gradient_sym — bf16 MXU
-    # lowering costs 5e-3 gradient accuracy on device otherwise
+    # precision pin: see infidelity_and_gradient_sym
     dphr = jnp.einsum("ljb,jkb,lkb->lb", a_lj, gr, b_lk,
                       precision=jax.lax.Precision.HIGHEST)
     dphi = jnp.einsum("ljb,jkb,lkb->lb", a_lj, gi, b_lk,

@@ -2,19 +2,19 @@
 
 The reference's only parallelism is a default-off multiprocessing.Pool over
 bootstrap reps (mcsim.py:452-455; commented-out MPI hooks in ppo.py are the
-other fossil, SURVEY.md §2.4).  The TPU-native equivalent: a 1-D device
-mesh over the embarrassingly-parallel batch axis ("batch" = controllers for
-the MC engine, restarts for optimizers, environments for PPO).  Inputs are
-laid out with `jax.device_put` + NamedSharding and every multi-device
-program runs under `jax.shard_map` (manual axes): the production programs
-contain Pallas kernels, and Mosaic custom calls cannot be auto-partitioned
-by GSPMD (jax's tpu_custom_call lowering raises under any multi-device
-ShardingContext).  The batch axes are embarrassingly parallel, so the
-manual programs carry at most an all-gather of the (L, C) metric
-reductions riding ICI — no DCN traffic at this problem scale.
+other fossil, SURVEY.md §2.4).  Here: a 1-D device mesh over the
+embarrassingly-parallel batch axis ("batch" = controllers for the MC
+engine, restarts for optimizers, environments for PPO).  Inputs are laid
+out with `jax.device_put` + NamedSharding and every multi-device program
+runs under `jax.shard_map` (manual axes): each device runs the same
+single-device program, Pallas kernels included, on its block.  The batch
+axes are embarrassingly parallel, so the programs carry at most a gather
+of the (L, C) metric reductions.  The cards of one host reach each other
+all to all over NVLink, so the mesh follows the algorithm alone and stays
+1-D.
 
-For a v5e-8 slice use make_mesh(8); the same code path is exercised on the
-8-virtual-device CPU mesh in tests (tests/test_parallel.py) and by
+``make_mesh(4)`` spans four cards; the same code path runs on the
+8-virtual-device CPU mesh in tests (tests/test_parallel.py) and in
 __graft_entry__.dryrun_multichip.
 """
 
@@ -73,7 +73,8 @@ def check_divisible(mesh: Mesh, k: int, what: str = "batch") -> int:
 def sharded_mc_sweep(mesh: Mesh, h0, controllers, noises, key, bootreps: int,
                      in_spin: int, out_spin: int, *,
                      complex_offdiag: bool = True,
-                     use_jacobi: bool = True, use_pallas: bool = False,
+                     use_jacobi: bool = True,
+                     use_pallas: Optional[bool] = None,
                      chunk=None) -> jnp.ndarray:
     """(L, C, B) fidelity tensor with the controller axis sharded.
 
@@ -88,7 +89,8 @@ def sharded_mc_sweep(mesh: Mesh, h0, controllers, noises, key, bootreps: int,
     c_global = controllers.shape[0]
     n_dev = check_divisible(mesh, c_global, "controller")
     c_local = c_global // n_dev
-    local_chunk = min(engine._resolve_chunk(chunk, use_pallas),
+    use_pallas = engine._resolve_pallas(use_pallas)
+    local_chunk = min(engine._resolve_chunk(chunk),
                       noises.shape[0] * c_local * bootreps)
 
     def local_sweep(ctrl_block):
@@ -99,9 +101,11 @@ def sharded_mc_sweep(mesh: Mesh, h0, controllers, noises, key, bootreps: int,
             complex_offdiag, local_chunk, use_jacobi, offset, c_global,
             use_pallas)
 
+    # check_vma off: a pallas_call's outputs carry no varying-axes type
+    # (see build_sharded_batch_fn); the sweep is elementwise along C
     fn = shard_map(local_sweep, mesh=mesh,
                    in_specs=P(BATCH_AXIS, None),
-                   out_specs=P(None, BATCH_AXIS, None))
+                   out_specs=P(None, BATCH_AXIS, None), check_vma=False)
     ctrl = shard_batch(mesh, controllers, axis=0)
     return jax.jit(fn)(ctrl)
 
@@ -109,7 +113,7 @@ def sharded_mc_sweep(mesh: Mesh, h0, controllers, noises, key, bootreps: int,
 def sharded_mc_metrics(mesh: Mesh, h0, controllers, noises, key,
                        bootreps: int, in_spin: int, out_spin: int, *,
                        complex_offdiag: bool = True,
-                       use_pallas: bool = False,
+                       use_pallas: Optional[bool] = None,
                        chunk=None,
                        alpha: float = 0.05):
     """Fused sweep+metric reduction with the controller axis sharded.
@@ -124,7 +128,8 @@ def sharded_mc_metrics(mesh: Mesh, h0, controllers, noises, key,
     c_global = controllers.shape[0]
     n_dev = check_divisible(mesh, c_global, "controller")
     c_local = c_global // n_dev
-    local_chunk = min(engine._resolve_chunk(chunk, use_pallas),
+    use_pallas = engine._resolve_pallas(use_pallas)
+    local_chunk = min(engine._resolve_chunk(chunk),
                       noises.shape[0] * c_local * bootreps)
 
     def local_metrics(ctrl_block):
@@ -139,7 +144,8 @@ def sharded_mc_metrics(mesh: Mesh, h0, controllers, noises, key,
              for k in (base, base + " upper", base + " lower")]
     fn = shard_map(local_metrics, mesh=mesh,
                    in_specs=P(BATCH_AXIS, None),
-                   out_specs={k: P(None, BATCH_AXIS) for k in names})
+                   out_specs={k: P(None, BATCH_AXIS) for k in names},
+                   check_vma=False)
     ctrl = shard_batch(mesh, controllers, axis=0)
     return jax.jit(fn)(ctrl)
 
@@ -152,10 +158,8 @@ def build_sharded_batch_fn(mesh: Mesh, opt):
     compile serves every sigma cell).
 
     Manual axes (shard_map) rather than GSPMD auto-partitioning because
-    the production batch programs contain Pallas kernels and Mosaic
-    custom calls cannot be auto-partitioned — jax's tpu_custom_call
-    lowering raises NotImplementedError under any multi-device
-    ShardingContext.  Under shard_map each device lowers and runs the
+    the production batch programs contain Pallas kernels, which GSPMD
+    cannot partition.  Under shard_map each device lowers and runs the
     identical single-device program (Pallas kernels included) on its
     block; restarts are embarrassingly parallel, so there are no
     collectives.  Lane freezing/recycling is device-local: a device

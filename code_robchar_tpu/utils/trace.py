@@ -6,9 +6,9 @@ This module adds device-level observability on top:
 
 - ``trace(logdir)``: context manager around jax.profiler for TensorBoard
   traces of the jitted programs.
-- ``timed(tag)``: wall-clock section timer with a synchronising fetch so
-  numbers are honest on asynchronous backends (see bench.py for why
-  block_until_ready alone is insufficient on some relays).
+- ``timed(tag)``: wall-clock section timer that waits for ``sync_on``
+  (``jax.block_until_ready``) so numbers are honest on asynchronous
+  backends.
 - ``Stopwatch``: accumulating named timers for host-side loops.
 """
 
@@ -39,11 +39,7 @@ def timed(tag: str, sync_on: Optional[object] = None,
         yield
     finally:
         if sync_on is not None:
-            import jax.numpy as jnp
-            import numpy as np
-            leaves = jax.tree.leaves(sync_on)
-            if leaves:
-                float(jnp.sum(leaves[0]))  # fetch barrier
+            jax.block_until_ready(sync_on)
         printer(f"[{tag}] {time.perf_counter() - start:.3f}s")
 
 

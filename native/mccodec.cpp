@@ -10,7 +10,7 @@
 // actually engages; the binary .mcb sidecar remains the fastest reload
 // and this parser is the fast path for sidecar-less files, e.g. the
 // reference's shipped caches).  It is the framework's native data-loader:
-// the TPU compute path is JAX/XLA, the cache IO path is C++.
+// the compute path is JAX/XLA, the cache IO path is C++.
 //
 // Exposed C ABI (consumed via ctypes from
 // code_robchar_tpu/utils/native_io.py):

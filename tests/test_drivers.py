@@ -137,3 +137,24 @@ def test_ppo_test_driver_wiring(recorder):
     gammas = [k["custom_args"]["gamma"] for _, _, k in exp.calls]
     assert lams == [0.8, 0.2, 0.8, 0.2]
     assert gammas == [0.8, 0.8, 0.2, 0.2]
+
+
+@pytest.mark.parametrize("extra,want", [
+    ([], [("singlerun_ccollector", (), {})]),
+    (["--algos", "ppo,lbfgs,nmplus,snob,adam"],
+     [("singlerun_ccollector",
+       (["ppo", "lbfgs", "nmplus", "snob", "adam"],), {})]),
+])
+def test_collect_algos_flag_through_main(recorder, extra, want):
+    """`drivers.main(argv)` runs `collect` in-process; `--algos` picks the
+    families (default: the reference's four)."""
+    drivers.main(["collect", "--exp_name", "x", "--nspin", "7",
+                  "--outspin", "6", "--num_controllers", "1000"] + extra)
+    (exp,) = recorder.instances
+    assert exp.kw["Nspin"] == 7 and exp.kw["runs"] == 1000
+    assert exp.calls == want
+
+
+def test_main_rejects_unknown_command():
+    with pytest.raises(SystemExit):
+        drivers.main(["nope"])

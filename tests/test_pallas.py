@@ -1,24 +1,32 @@
-"""Pallas kernel parity (interpret mode, small unroll to keep CPU compile
-time sane; the device path is exercised by bench.py's checksum)."""
+"""Pallas Jacobi kernels (Triton route) in interpret mode, the block and
+padding choice, and the kernel selector.  On the card the same kernels
+are compiled and checked by tests/test_gpu.py and chip_smoke.py."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from code_robchar_tpu.ops import realform
+from code_robchar_tpu.ops import kernel_check, realform, select
+from code_robchar_tpu.ops import pallas_jacobi as pj
 from code_robchar_tpu.ops.pallas_jacobi import fidelity_herm_pallas
 
 
-def test_pallas_matches_lanes_interpret(rng):
-    n, b = 4, 128
+def _herm_lanes(rng, n, b):
     a = rng.normal(size=(b, n, n)).astype(np.float32)
     sym = (a + np.transpose(a, (0, 2, 1))) / 2
     anti = (a - np.transpose(a, (0, 2, 1))) / 2
     ar = jnp.asarray(np.moveaxis(sym, 0, -1).copy())
     ai = jnp.asarray(np.moveaxis(anti, 0, -1).copy())
     t = jnp.asarray(rng.uniform(1, 5, b).astype(np.float32))
+    return ar, ai, t
+
+
+def test_pallas_matches_lanes_interpret(rng):
+    n, b = 4, 128
+    ar, ai, t = _herm_lanes(rng, n, b)
     ref = realform.fidelity_herm_lanes(ar, ai, t, 0, 2, sweeps=6)
-    out = fidelity_herm_pallas(ar, ai, t, 0, 2, sweeps=6, tile=128,
+    out = fidelity_herm_pallas(ar, ai, t, 0, 2, sweeps=6, block=128,
                                interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
@@ -26,10 +34,6 @@ def test_pallas_matches_lanes_interpret(rng):
 def test_pallas_sym_grad_matches_lanes_interpret(rng):
     """The fused gradient kernel must match the XLA lanes gradient
     (which itself matches the rows path at 1e-10)."""
-    from code_robchar_tpu.ops import realform
-    from code_robchar_tpu.ops.pallas_jacobi import \
-        infidelity_and_gradient_sym_pallas
-
     n, b = 5, 8
     h0 = np.asarray(rng.normal(size=(n, n)))
     h0 = jnp.asarray((h0 + h0.T) / 2, dtype=jnp.float32)
@@ -38,8 +42,8 @@ def test_pallas_sym_grad_matches_lanes_interpret(rng):
     ).astype(np.float32))
     want_e, want_g = realform.infidelity_and_gradient_sym_lanes(
         h0, xs, 0, 3, sweeps=6)
-    got_e, got_g = infidelity_and_gradient_sym_pallas(
-        h0, xs, 0, 3, sweeps=6, tile=b, interpret=True)
+    got_e, got_g = pj.infidelity_and_gradient_sym_pallas(
+        h0, xs, 0, 3, sweeps=6, interpret=True)
     np.testing.assert_allclose(np.asarray(got_e), np.asarray(want_e),
                                atol=2e-6, rtol=1e-5)
     np.testing.assert_allclose(np.asarray(got_g), np.asarray(want_g),
@@ -49,135 +53,121 @@ def test_pallas_sym_grad_matches_lanes_interpret(rng):
 def test_pallas_sym_amp_matches_lanes_interpret(rng):
     """The RL-rollout amplitude kernel must match the XLA lanes amplitude
     (the real-symmetric training-path physics)."""
-    from code_robchar_tpu.ops.pallas_jacobi import transfer_amp_sym_pallas
     n, b = 4, 128
-    a = rng.normal(size=(b, n, n)).astype(np.float32)
-    sym = (a + np.transpose(a, (0, 2, 1))) / 2
-    al = jnp.asarray(np.moveaxis(sym, 0, -1).copy())
-    t = jnp.asarray(rng.uniform(1, 5, b).astype(np.float32))
-    ref_r, ref_i = realform.transfer_amp_sym_lanes(al, t, 0, 2, sweeps=6)
-    got_r, got_i = transfer_amp_sym_pallas(al, t, 0, 2, sweeps=6, tile=128,
-                                           interpret=True)
+    ar, _, t = _herm_lanes(rng, n, b)
+    ref_r, ref_i = realform.transfer_amp_sym_lanes(ar, t, 0, 2, sweeps=6)
+    got_r, got_i = pj.transfer_amp_sym_pallas(ar, t, 0, 2, sweeps=6,
+                                              block=128, interpret=True)
     np.testing.assert_allclose(np.asarray(got_r), np.asarray(ref_r),
                                atol=2e-5)
     np.testing.assert_allclose(np.asarray(got_i), np.asarray(ref_i),
                                atol=2e-5)
 
 
-def test_pallas_critic_matches_optax_interpret(rng):
-    """The fused critic-training kernel must advance (params, vf_opt)
-    exactly like the vmapped optax fori_loop it replaces (the PPO value
-    regression, ppo.py:289-334): critic leaves + Adam moments converge to
-    the same state, pi leaves and their moments stay bit-identical."""
-    import optax
-    from code_robchar_tpu.models import actor_critic as ac
-    from code_robchar_tpu.ops.pallas_critic import critic_train
-
-    A, T, d, iters, lr = 3, 37, 6, 7, 1e-3
-    model = ac.ActorCritic(act_dim=d - 1)
-    keys = jax.random.split(jax.random.key(0), A)
-    obs0 = jnp.zeros((d,), jnp.float32)
-    params = jax.vmap(lambda k: model.init(k, obs0))(keys)
-    tx = optax.adam(lr)
-    vf_opt = jax.vmap(tx.init)(params)
-    obs = jnp.asarray(rng.normal(size=(A, T, d)).astype(np.float32))
-    rets = jnp.asarray(rng.normal(size=(A, T)).astype(np.float32))
-
-    def ref_update(p, opt, o, r):
-        def v_loss(pp):
-            _, _, v = model.apply(pp, o)
-            return jnp.mean((v - r) ** 2)
-
-        def body(_, carry):
-            pp, oo = carry
-            g = jax.grad(v_loss)(pp)
-            u, oo = tx.update(g, oo, pp)
-            return optax.apply_updates(pp, u), oo
-
-        return jax.lax.fori_loop(0, iters, body, (p, opt))
-
-    want_p, want_opt = jax.vmap(ref_update)(params, vf_opt, obs, rets)
-    # block=2 with A=3 exercises the pad-to-block path
-    got_p, got_opt = critic_train(params, vf_opt, obs, rets, iters=iters,
-                                  lr=lr, fast_dot=False, block=2,
-                                  interpret=True)
-    for wl, gl in zip(jax.tree.leaves(want_p), jax.tree.leaves(got_p)):
-        np.testing.assert_allclose(np.asarray(gl), np.asarray(wl),
-                                   atol=2e-6, rtol=1e-5)
-    for wl, gl in zip(jax.tree.leaves(want_opt), jax.tree.leaves(got_opt)):
-        np.testing.assert_allclose(np.asarray(gl), np.asarray(wl),
-                                   atol=2e-6, rtol=1e-5)
-    # pi leaves untouched bit-for-bit
-    for br in ("pi",):
-        w = jax.tree.leaves(params["params"][br])
-        g = jax.tree.leaves(got_p["params"][br])
-        for wl, gl in zip(w, g):
-            np.testing.assert_array_equal(np.asarray(gl), np.asarray(wl))
-    assert np.all(np.asarray(got_opt[0].count) == iters)
+@pytest.mark.parametrize("n,b", [(4, 37), (5, 70)])
+@pytest.mark.parametrize("kind", kernel_check.KINDS)
+def test_triton_kernels_match_lanes_at_odd_widths(kind, n, b, rng):
+    """Every kernel against the XLA lanes path at a width that is not a
+    multiple of the block (the wrapper edge-pads and slices back)."""
+    ar, ai, t = _herm_lanes(rng, n, b)
+    out_spin = n - 1
+    if kind == "herm_fid":
+        want = [realform.fidelity_herm_lanes(ar, ai, t, 0, out_spin)]
+        got = [fidelity_herm_pallas(ar, ai, t, 0, out_spin,
+                                    interpret=True)]
+        tol = dict(atol=2e-5)
+    elif kind == "sym_amp":
+        want = realform.transfer_amp_sym_lanes(ar, t, 0, out_spin)
+        got = pj.transfer_amp_sym_pallas(ar, t, 0, out_spin,
+                                         interpret=True)
+        tol = dict(atol=2e-5)
+    else:
+        xs = jnp.asarray(np.column_stack(
+            [rng.uniform(-5, 5, (b, n)), rng.uniform(0.5, 20, b)]
+        ).astype(np.float32))
+        h0 = ar[:, :, 0]
+        want = realform.infidelity_and_gradient_sym_lanes(h0, xs, 0,
+                                                          out_spin)
+        got = pj.infidelity_and_gradient_sym_pallas(h0, xs, 0, out_spin,
+                                                    interpret=True)
+        tol = dict(atol=5e-5, rtol=1e-4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), **tol)
 
 
-def test_pick_tile_legal_for_any_width():
-    """pick_tile must produce a Mosaic-legal tiling for EVERY batch width
-    (the old `b % 1024 == 0` gate silently dropped e.g. the NM shrink
-    chain at 512 lanes, b = 512*(d+1), onto the ~5x-slower XLA lanes
-    kernel; budget-scheduled restart counts produce arbitrary widths —
-    b = 5831 was observed crashing the first dividing-tile-only fix).
-    Legal means: tile == padded_b (one whole-array block) or tile a
-    multiple of 128 dividing padded_b; padding < 128 lanes."""
-    from code_robchar_tpu.ops.pallas_jacobi import pick_tile
-
-    for b in list(range(1, 40)) + [96, 512, 1024, 1025, 2048, 2176,
-                                   4608, 5831, 7680, 7681, 15360, 99999]:
-        t, bp = pick_tile(b)
-        assert b <= bp < b + 128
-        assert bp % t == 0 and t <= 1024
-        assert t == bp or t % 128 == 0, (b, t, bp)
-    assert pick_tile(1024) == (1024, 1024)
-    assert pick_tile(96) == (96, 96)          # small batches run whole
-    assert pick_tile(7680) == (768, 7680)     # 512 lanes x (d+1)=15
-    assert pick_tile(15360) == (1024, 15360)  # 1024 lanes x 15
-    assert pick_tile(5831) == (256, 5888)     # no dividing tile: pad
-    assert pick_tile(4608) == (768, 4608)
+@pytest.mark.parametrize("kind", kernel_check.KINDS)
+def test_kernel_check_against_f64_reference_interpret(kind):
+    """The card's check (kernel vs f64 jnp.linalg.eigh on the host CPU)
+    passes on production-like inputs in interpret mode."""
+    row = kernel_check.check_kernel(kind, 4, 33, interpret=True)
+    assert row["ok"], row
+    assert row["err_abs"] <= row["tol_abs"]
 
 
 def test_pallas_auto_tile_padded_width_interpret(rng):
-    """tile=None must handle a batch with NO legal dividing tile
-    (b = 1153 > 1024, odd) by edge-padding to the pick_tile width and
-    slicing back — the path a budget-scheduled restart count hits in
-    production (observed b = 5831 crashing Mosaic lowering when an
-    unpadded non-128-multiple tile was dispatched)."""
+    """block=None must handle a batch that no block divides (b = 1153,
+    odd) by edge-padding to the block width and slicing back."""
     n, b = 4, 1153
-    a = rng.normal(size=(b, n, n)).astype(np.float32)
-    sym = (a + np.transpose(a, (0, 2, 1))) / 2
-    ar = jnp.asarray(np.moveaxis(sym, 0, -1).copy())
+    ar, _, t = _herm_lanes(rng, n, b)
     ai = jnp.zeros_like(ar)
-    t = jnp.asarray(rng.uniform(1, 5, b).astype(np.float32))
     ref = realform.fidelity_herm_lanes(ar, ai, t, 0, 2, sweeps=6)
     out = fidelity_herm_pallas(ar, ai, t, 0, 2, sweeps=6, interpret=True)
     assert out.shape == (b,)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
-def test_objectives_dispatch_pallas_for_odd_widths(monkeypatch, rng):
-    """The objective builders must send EVERY batch width down the Pallas
-    path on TPU backends — the b % 1024 == 0 gate this replaces silently
-    dropped odd widths onto the ~5x-slower XLA lanes kernel, invisible to
-    all CPU tests (use_pallas is backend-gated).  Spy on the Pallas entry
-    points with the backend decision forced to TPU."""
+@pytest.mark.parametrize("b,want", [
+    (1, (pj.BLOCK_NARROW, 32)),
+    (1024, (pj.BLOCK_NARROW, 1024)),          # zoo / PPO batches
+    (1153, (pj.BLOCK_NARROW, 1184)),          # odd width: padded
+    (pj.WIDE_FROM - 1, (pj.BLOCK_NARROW, pj.WIDE_FROM)),
+    (65536, (pj.BLOCK_WIDE, 65536)),          # MC chunk
+    (99999, (pj.BLOCK_WIDE, 100096)),
+])
+def test_pick_block_pads_to_whole_power_of_two_blocks(b, want):
+    block, bp = pj.pick_block(b)
+    assert (block, bp) == want
+    assert block & (block - 1) == 0 and block % 32 == 0
+    assert bp % block == 0 and b <= bp < b + block
+
+
+@pytest.mark.parametrize("platform,kernel", [("gpu", "triton"),
+                                             ("cpu", "xla")])
+def test_select_known_platforms(platform, kernel):
+    assert select.jacobi_kernel(platform) == kernel
+    assert select.use_pallas(platform) == (kernel == "triton")
+
+
+@pytest.mark.parametrize("platform", ["cuda", "rocm", "METAL"])
+def test_select_unknown_platform_raises(platform):
+    with pytest.raises(ValueError, match="unsupported platform"):
+        select.jacobi_kernel(platform)
+
+
+def test_select_defaults_to_the_running_backend():
+    assert jax.default_backend() == "cpu"
+    assert select.jacobi_kernel() == "xla"
+    assert select.use_pallas() is False
+
+
+def test_objectives_dispatch_through_selector(monkeypatch, rng):
+    """The objective builders send every batch width down the Pallas path
+    when the selector picks it.  Spy on the Pallas entry points with the
+    selector forced to the GPU answer."""
     import code_robchar_tpu.models.objectives as obj
     from code_robchar_tpu.ops import chain
-    from code_robchar_tpu.ops import pallas_jacobi as pj
 
-    monkeypatch.setattr(obj.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(select, "use_pallas", lambda platform=None: True)
     calls = []
     monkeypatch.setattr(
         pj, "infidelity_and_gradient_sym_pallas",
-        lambda h0, xs, i, o, sweeps=None, tile=None, interpret=False:
+        lambda h0, xs, i, o, **kw:
             calls.append(("grad", xs.shape[0])) or
             realform.infidelity_and_gradient_sym_lanes(h0, xs, i, o))
     monkeypatch.setattr(
         pj, "fidelity_sym_pallas",
-        lambda a, t, i, o, sweeps=None, tile=None, interpret=False:
+        lambda a, t, i, o, **kw:
             calls.append(("fid", a.shape[-1])) or
             realform.fidelity_sym_lanes(a, t, i, o))
 
@@ -187,61 +177,66 @@ def test_objectives_dispatch_pallas_for_odd_widths(monkeypatch, rng):
                              fid_noisy=False, ham_noisy=False, draws=0,
                              adaptive=False, adp_tol=0.0,
                              fixed_hams=None, mul_fac=1)
-    for b in (7, 833, 1153):
+    for b in (7, 1153):
         xs = jnp.asarray(rng.uniform(-5, 5, (b, n + 1)).astype(np.float32))
         e, g = obj.make_exact_gradient_batch(spec)(xs)
         assert e.shape == (b,) and g.shape == (b, n + 1)
         a = jnp.broadcast_to(h0[:, :, None], (n, n, b))
         t = jnp.asarray(rng.uniform(1, 5, b).astype(np.float32))
-        f = obj._make_fid_lanes(n, 0, 2)(a, t)
-        assert f.shape == (b,)
-    assert [c for c in calls if c[0] == "grad"] == [
-        ("grad", 7), ("grad", 833), ("grad", 1153)]
-    assert [c for c in calls if c[0] == "fid"] == [
-        ("fid", 7), ("fid", 833), ("fid", 1153)]
+        assert obj._make_fid_lanes(0, 2)(a, t).shape == (b,)
+    assert calls == [("grad", 7), ("fid", 7), ("grad", 1153),
+                     ("fid", 1153)]
 
 
 def test_pair_schedule_covers_all_pairs_disjointly():
-    """Round-robin ordering (round 4, ROOFLINE.md): every sweep must
-    still visit each of the n(n-1)/2 pivots exactly once, and a stage's
-    pairs must be pairwise disjoint (that disjointness is what makes
-    the hoisted angle computation exact)."""
-    from code_robchar_tpu.ops.pallas_jacobi import pair_schedule
-
+    """Round-robin ordering: every sweep must still visit each of the
+    n(n-1)/2 pivots exactly once, and a stage's pairs must be pairwise
+    disjoint (that disjointness is what makes the hoisted angle
+    computation exact)."""
     for n in range(2, 12):
         for order in ("cyclic", "roundrobin"):
-            stages = pair_schedule(n, order)
+            stages = pj.pair_schedule(n, order)
             flat = [pq for st in stages for pq in st]
             assert sorted(flat) == [(p, q) for p in range(n - 1)
                                     for q in range(p + 1, n)], (n, order)
             for st in stages:
                 touched = [i for pq in st for i in pq]
                 assert len(touched) == len(set(touched)), (n, order, st)
-    # cyclic must reproduce the exact pre-round-4 row-major order
-    assert [st[0] for st in pair_schedule(4, "cyclic")] == [
+    # cyclic must reproduce the exact row-major order
+    assert [st[0] for st in pj.pair_schedule(4, "cyclic")] == [
         (0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
-    import pytest
     with pytest.raises(ValueError):
-        pair_schedule(5, "zigzag")
+        pj.pair_schedule(5, "zigzag")
+
+
+@pytest.mark.parametrize("n", range(2, 12))
+def test_stage_relabel_walks_the_round_robin_schedule(n):
+    """Looping one relabelled stage visits the pairs of every round-robin
+    stage in turn and brings every slot back after a sweep."""
+    pairs, perm = pj.stage_relabel(n)
+    assert all(p < q for p, q in pairs)
+    assert sorted(perm) == list(range(n))
+    label = list(range(n))                 # slot -> original index
+    for stage in pj.pair_schedule(n):
+        got = sorted(tuple(sorted((label[p], label[q]))) for p, q in pairs)
+        assert got == sorted(stage)
+        label = [label[perm[j]] for j in range(n)]
+    assert label == list(range(n))
 
 
 def test_roundrobin_matches_cyclic_at_convergence(rng):
-    """Rotation-order change must not move the converged result beyond
-    the f32 floor: RR and cyclic fidelities agree to ~1e-5 at the
-    production sweep count (interpret mode; the on-device check is the
-    accuracy table in artifacts/perf/ROOFLINE.md)."""
-    from code_robchar_tpu.ops.pallas_jacobi import make_fidelity_kernel
-
+    """The kernels' round-robin order must not move the converged result
+    beyond the f32 floor: at the production sweep count the kernel
+    agrees with the x64 oracle to ~1e-5."""
     n, b = 5, 256
     a = rng.normal(size=(b, n, n)).astype(np.float32)
     sym = (a + np.transpose(a, (0, 2, 1))) / 2
     sk = rng.normal(size=(b, n, n)).astype(np.float32)
     skew = (sk - np.transpose(sk, (0, 2, 1))) / 2
-    ar = jnp.asarray(np.moveaxis(sym, 0, -1).reshape(n * n, b).copy())
-    ai = jnp.asarray(np.moveaxis(skew, 0, -1).reshape(n * n, b).copy())
+    ar = jnp.asarray(np.moveaxis(sym, 0, -1).copy())
+    ai = jnp.asarray(np.moveaxis(skew, 0, -1).copy())
     t = jnp.asarray(rng.uniform(1, 5, b).astype(np.float32))
-    f_rr = make_fidelity_kernel(n, 0, 4, sweeps=5, tile=b,
-                                interpret=True)(ar, ai, t.reshape(1, b))
+    f_rr = fidelity_herm_pallas(ar, ai, t, 0, 4, sweeps=5, interpret=True)
     # x64 oracle
     H = sym.astype(np.float64) + 1j * skew.astype(np.float64)
     lam, V = np.linalg.eigh(H)
@@ -249,3 +244,16 @@ def test_roundrobin_matches_cyclic_at_convergence(rng):
                    np.exp(-1j * lam * np.asarray(t, np.float64)[:, None]))
     np.testing.assert_allclose(np.asarray(f_rr).ravel(),
                                np.abs(ph) ** 2, atol=3e-5)
+
+
+@pytest.mark.parametrize("kernel,chunk", [("triton", 262144),
+                                          ("xla", 8192)])
+def test_mc_chunk_follows_the_selected_kernel(monkeypatch, kernel, chunk):
+    """chunk=None takes the chunk measured for the platform's kernel; an
+    explicit chunk wins."""
+    from code_robchar_tpu.mc import engine
+
+    monkeypatch.setattr(select, "jacobi_kernel",
+                        lambda platform=None: kernel)
+    assert engine._resolve_chunk(None) == chunk
+    assert engine._resolve_chunk(64) == 64

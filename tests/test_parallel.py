@@ -163,22 +163,16 @@ def test_adam_mesh_kwarg_public_run():
     assert 1 <= len(opt.record["controllers"]) <= 8
 
 
-def test_ppo_mesh_with_pallas_kernels_interpret():
-    """pallas_call INSIDE the shard_map epoch: Mosaic kernels cannot be
-    GSPMD-auto-partitioned (jax tpu_custom_call lowering raises on any
-    multi-device ShardingContext), which is why every mesh path uses
-    manual axes.  This pins the combination the real multi-chip TPU
-    would run — the fused rollout + critic Pallas kernels inside the
-    sharded epoch — via their interpret mode on the CPU mesh (local
-    agent block 64 = the interpret-mode tile)."""
+def test_ppo_mesh_sharded_epoch_run():
+    """The shard_map epoch over a 2-device mesh with 64 agents per
+    device: the public run() path bills every agent's steps."""
     from code_robchar_tpu.models.ppo import PPO_en
 
     mesh = make_mesh(2)
     ppo = PPO_en(3, 0, 2, testing=True, fid_threshold=0.0,
                  run_until_told_to_stop=True, run_until_completion_its=512,
                  landscape_exploration=True, save_topc=8,
-                 num_agents=128, mesh=mesh,
-                 fused_rollout=True, fused_critic=True)
+                 num_agents=128, mesh=mesh)
     best = ppo.run(epochs=1, steps_per_epoch=4, train_pi_iters=2,
                    train_v_iters=2)
     assert 0 <= best <= 1 + 1e-9
@@ -264,3 +258,29 @@ def test_ppo_mesh_kwarg_public_run():
     assert 0 <= best <= 1 + 1e-9
     assert ppo.record["func_calls"] is not None
     assert 1 <= len(ppo.record["controllers"]) <= 8
+
+
+def test_sharded_mc_metrics_with_kernel_in_interpret_mode(monkeypatch):
+    """The Pallas Jacobi kernel inside the shard_map MC programs (the
+    GPU path, here in interpret mode on the CPU mesh) matches the
+    unsharded lanes sweep."""
+    from code_robchar_tpu.mc import engine
+    from code_robchar_tpu.ops import chain
+    from code_robchar_tpu.ops import pallas_jacobi as pj
+    from code_robchar_tpu.parallel import sharded_mc_metrics
+
+    kernel = pj.fidelity_herm_pallas
+    monkeypatch.setattr(pj, "fidelity_herm_pallas",
+                        lambda *a, **k: kernel(*a, interpret=True, **k))
+    mesh = make_mesh(4)
+    h0 = chain.xx_hamiltonian_real(4, dtype=jnp.float32)
+    ctrl = jnp.asarray(np.random.default_rng(0).uniform(
+        -5, 5, (8, 5)).astype(np.float32))
+    noises = jnp.asarray([0.0, 0.05], jnp.float32)
+    got = sharded_mc_metrics(mesh, h0, ctrl, noises, jax.random.key(1), 10,
+                             0, 2, use_pallas=True, chunk=40)
+    want = engine.mc_metric_sweep(h0, ctrl, noises, jax.random.key(1), 10,
+                                  0, 2, use_pallas=False, chunk=40)
+    for k in want:
+        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]),
+                                   atol=2e-5)

@@ -49,157 +49,6 @@ def test_ppo_fixed_ham_fcall_multiplier():
     assert ppo.record["func_calls"] % 8 == 0
 
 
-def test_ppo_fused_critic_matches_fori_loop_epoch():
-    """One jitted epoch with the fused Pallas critic (interpret mode on
-    CPU) must match the XLA fori_loop critic path: same rollout, same
-    post-update parameters to f32 tolerance."""
-    import jax
-    import numpy as np
-
-    def one_epoch(fused):
-        ppo = PPO_en(3, 0, 2, testing=True, num_agents=2, seed=7,
-                     fused_critic=fused)
-        fn = ppo._build_epoch(steps_per_epoch=16, clip_ratio=0.2,
-                              pi_lr=3e-3, vf_lr=1e-3, max_ep_len=1000,
-                              train_pi_iters=2, train_v_iters=3,
-                              target_kl=0.01)
-        key = jax.random.key(0)
-        st = jax.vmap(ppo._init_agent)(jax.random.split(key, 2))
-        return fn(st)
-
-    st_a, out_a = one_epoch(False)
-    st_b, out_b = one_epoch(True)
-    np.testing.assert_allclose(np.asarray(out_b.true_fids),
-                               np.asarray(out_a.true_fids), atol=1e-6)
-    # pi branch must be bit-identical (the kernel only owns the critic)
-    for wl, gl in zip(jax.tree.leaves(st_a.params["params"]["pi"]),
-                      jax.tree.leaves(st_b.params["params"]["pi"])):
-        np.testing.assert_array_equal(np.asarray(gl), np.asarray(wl))
-    # critic leaves: the fallback runs its intermediates in f64 under the
-    # test regime while the kernel is f32; Adam turns a tiny gradient
-    # sign flip into a full lr-sized step, so the bound is lr-scaled
-    # (exact f32 semantics are pinned in tests/test_pallas.py)
-    atol = 2 * 1e-3 * 3  # 2 * vf_lr * train_v_iters
-    for wl, gl in zip(jax.tree.leaves(st_a.params["params"]["v"]),
-                      jax.tree.leaves(st_b.params["params"]["v"])):
-        np.testing.assert_allclose(np.asarray(gl), np.asarray(wl),
-                                   atol=atol)
-    assert np.all(np.asarray(st_b.vf_opt[0].count) == 3)
-    for wl, gl in zip(jax.tree.leaves(st_a.vf_opt[0].nu),
-                      jax.tree.leaves(st_b.vf_opt[0].nu)):
-        np.testing.assert_allclose(np.asarray(gl), np.asarray(wl),
-                                   atol=1e-4, rtol=2e-3)
-
-
-def test_ppo_fused_rollout_matches_xla_scan():
-    """The one-launch-per-step fused rollout (interpret mode on CPU)
-    must reproduce the XLA scan body: same noise draws, same rewards,
-    same visited controllers, same env state (f32 kernel vs the f64
-    fallback regime => 1e-5 tolerance)."""
-    import jax
-    import numpy as np
-
-    def one(fused):
-        ppo = PPO_en(4, 0, 2, testing=True, num_agents=64, seed=3,
-                     ham_noisy=True, fused_critic=False,
-                     fused_rollout=fused)
-        fn = ppo._build_epoch(steps_per_epoch=8, clip_ratio=0.2,
-                              pi_lr=3e-3, vf_lr=1e-3, max_ep_len=1000,
-                              train_pi_iters=1, train_v_iters=1,
-                              target_kl=0.01)
-        st = jax.vmap(ppo._init_agent)(
-            jax.random.split(jax.random.key(1), 64))
-        return fn(st)
-
-    st_a, out_a = one(False)
-    st_b, out_b = one(True)
-    np.testing.assert_allclose(np.asarray(out_b.rewards),
-                               np.asarray(out_a.rewards), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(out_b.stores),
-                               np.asarray(out_a.stores), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(out_b.true_fids),
-                               np.asarray(out_a.true_fids), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(st_b.env.action),
-                               np.asarray(st_a.env.action), atol=2e-5)
-    np.testing.assert_array_equal(np.asarray(st_b.ep_len),
-                                  np.asarray(st_a.ep_len))
-
-
-def test_ppo_fused_rollout_timeout_and_noiseless_paths():
-    """Fused-rollout parity in the regimes the main test misses: episode
-    timeout resets firing mid-trajectory (max_ep_len < steps) and the
-    ham_noisy=False branch (noise adds compiled out of the kernel)."""
-    import jax
-    import numpy as np
-
-    def one(fused):
-        ppo = PPO_en(4, 0, 2, testing=True, num_agents=64, seed=11,
-                     ham_noisy=False, fused_critic=False,
-                     fused_rollout=fused)
-        fn = ppo._build_epoch(steps_per_epoch=12, clip_ratio=0.2,
-                              pi_lr=3e-3, vf_lr=1e-3, max_ep_len=5,
-                              train_pi_iters=0, train_v_iters=0,
-                              target_kl=0.01)
-        st = jax.vmap(ppo._init_agent)(
-            jax.random.split(jax.random.key(2), 64))
-        return fn(st)
-
-    st_a, out_a = one(False)
-    st_b, out_b = one(True)
-    np.testing.assert_allclose(np.asarray(out_b.rewards),
-                               np.asarray(out_a.rewards), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(out_b.stores),
-                               np.asarray(out_a.stores), atol=2e-5)
-    np.testing.assert_array_equal(np.asarray(st_b.ep_len),
-                                  np.asarray(st_a.ep_len))
-    # with max_ep_len=5 < 12 steps, timeouts MUST have fired
-    assert np.asarray(st_a.ep_len).max() < 12
-
-
-def test_ppo_fused_fallback_is_signalled(capsys):
-    """VERDICT r3 weak #6: when the fused rollout is auto-disabled by
-    regime or tiling, one verbose line must name the reason; a clean
-    tiled noiseless config must stay silent."""
-    # shot-noise regime: fused path off, reason named
-    ppo = PPO_en(3, 0, 2, testing=True, fid_threshold=0.0, verbose=True,
-                 run_until_told_to_stop=True, run_until_completion_its=10,
-                 landscape_exploration=True, fid_noisy=True,
-                 fused_rollout=True, num_agents=128)
-    ppo._signal_fused_fallbacks()
-    out = capsys.readouterr().out
-    assert "fused rollout disabled" in out and "fid_noisy" in out
-
-    # odd agent count: tiling reason named
-    ppo2 = PPO_en(3, 0, 2, testing=True, fid_threshold=0.0, verbose=True,
-                  run_until_told_to_stop=True, run_until_completion_its=10,
-                  landscape_exploration=True, fused_rollout=True,
-                  num_agents=100)
-    ppo2._signal_fused_fallbacks()
-    out2 = capsys.readouterr().out
-    assert "fused rollout disabled" in out2 and "128-lane" in out2
-
-    # fixed-ham reason named through the real build path (_build_epoch
-    # calls the signal hook before the program-cache lookup)
-    ppo3 = PPO_en(3, 0, 2, testing=True, fid_threshold=0.0, verbose=True,
-                  run_until_told_to_stop=True, run_until_completion_its=10,
-                  landscape_exploration=True, fused_rollout=True,
-                  use_fixed_ham=True, opt_train_size=3, num_agents=128)
-    ppo3._build_epoch(steps_per_epoch=4, clip_ratio=0.2, pi_lr=3e-3,
-                      vf_lr=1e-3, max_ep_len=5, train_pi_iters=0,
-                      train_v_iters=0, target_kl=0.01)
-    out3 = capsys.readouterr().out
-    assert "fused rollout disabled" in out3 and "fixed-ham" in out3
-
-    # clean config (tiled, noiseless): no fallback line
-    ppo4 = PPO_en(3, 0, 2, testing=True, fid_threshold=0.0, verbose=True,
-                  run_until_told_to_stop=True, run_until_completion_its=10,
-                  landscape_exploration=True, fused_rollout=True,
-                  num_agents=128)
-    ppo4._signal_fused_fallbacks()
-    assert "fused rollout disabled" not in capsys.readouterr().out
-    assert ppo4.fused_rollout_fallback_reasons() == []
-
-
 def test_ppo_kl_gate_rejects_tripping_update():
     """The reference checks KL at the current params and breaks BEFORE
     stepping (ppo.py:303-314): the round that trips the gate must leave
@@ -212,8 +61,7 @@ def test_ppo_kl_gate_rejects_tripping_update():
 
     def one(pi_iters, tkl):
         ppo = PPO_en(4, 0, 2, testing=True, num_agents=4, seed=7,
-                     ham_noisy=True, fused_critic=False,
-                     fused_rollout=False)
+                     ham_noisy=True)
         fn = ppo._build_epoch(steps_per_epoch=8, clip_ratio=0.2,
                               pi_lr=3e-3, vf_lr=1e-3, max_ep_len=1000,
                               train_pi_iters=pi_iters, train_v_iters=1,

@@ -1,6 +1,6 @@
 """Split-real kernel parity vs the complex reference implementations.
 
-The TPU production path never touches a complex dtype (ops/realform.py);
+The production path never touches a complex dtype (ops/realform.py);
 these tests pin it to the complex oracles at float64 <= 1e-10.
 """
 
@@ -254,7 +254,7 @@ def test_gradient_lanes_ring_degeneracies():
             jnp.asarray(ring), jnp.asarray(xs), 0, n - 1)
         np.testing.assert_allclose(np.asarray(g64), oracle, atol=1e-10)
 
-        # f32 lanes: the production fallback for non-TPU backends
+        # f32 lanes: the production path on the CPU
         _, g32 = realform.infidelity_and_gradient_sym_lanes(
             jnp.asarray(ring, jnp.float32), jnp.asarray(xs, jnp.float32),
             0, n - 1)
